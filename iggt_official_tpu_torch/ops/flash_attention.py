@@ -1,0 +1,283 @@
+"""Flash attention: hand-written Hopper kernels, their plain versions, dispatch.
+
+Counterpart of `iggt_official_tpu/ops/flash_attention.py`.  Both Pallas
+kernels of that module map onto one templated CUDA kernel
+(`csrc/flash_attention.cu`):
+
+- `flash_attention`: non-causal softmax(Q K^T D^-1/2 + key_bias) V, online
+  softmax in fp32, for (B, N, H, D) tensors with D in {32, 64} and dtype in
+  {bf16, fp32}.
+- `flash_attention_fused`: the same with the aggregator's q/k prep (fp32
+  head-dim LayerNorm with the fast variance, then 2D RoPE from packed
+  (B, N, D) tables, one rounding to the compute dtype) applied to each q/k
+  tile inside the kernel.
+
+The wrappers launch the kernel for CUDA tensors (or raise) and take the
+plain version only for CPU tensors.  Each wrapper counts its launches in a
+plain integer attribute (`flash_attention.launches`,
+`flash_attention_fused.launches`).
+
+Dispatch (`attention`) keeps the JAX protocol (`supports_fused_qk_prep`):
+calls that carry RoPE tables or qk-norm params go to the fused kernel, the
+rest to the flash kernel.  `global_attention` is the aggregator's
+global-block function: plain q/k prep, then the flash kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from iggt_official_tpu_torch.ops import cuda_build
+
+HEAD_DIMS = (32, 64)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path, and the yardstick the kernels are held to)
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    block_q: int = 1024,
+) -> torch.Tensor:
+    """Blockwise exact attention, (B, Nq, H, D) x (B, Nk, H, D) -> (B, Nq, H, D).
+
+    Mirrors `sdpa_chunked` of the JAX package: per query block an exact fp32
+    softmax over the full key axis, so memory is O(block_q * Nk) rather than
+    O(Nq * Nk).  Logits accumulate in fp32; probabilities are cast to V's
+    dtype before P.V, which accumulates in fp32; the result has q's dtype.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kf, vf = k.float(), v.float()
+    bias = None if key_bias is None else key_bias.float()[:, None, None, :]
+    out = torch.empty_like(q)
+    for s in range(0, q.shape[1], block_q):
+        logits = torch.einsum("bqhd,bkhd->bhqk", q[:, s:s + block_q].float(), kf)
+        logits = logits * scale
+        if bias is not None:
+            logits = logits + bias
+        p = torch.softmax(logits, dim=-1).to(v.dtype).float()
+        out[:, s:s + block_q] = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    return out
+
+
+def rotate_half_2d(x: torch.Tensor) -> torch.Tensor:
+    """2D-RoPE rotate-half over the last dim, per spatial half:
+    concat(-x[q:2q], x[0:q], -x[3q:4q], x[2q:3q]) with q = D/4."""
+    a, b, c, d = x.chunk(4, dim=-1)
+    return torch.cat([-b, a, -d, c], dim=-1)
+
+
+def qk_prep_plain(
+    x: torch.Tensor,
+    gamma: Optional[torch.Tensor],
+    beta: Optional[torch.Tensor],
+    cos: Optional[torch.Tensor],
+    sin: Optional[torch.Tensor],
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """fp32 head-dim LayerNorm (fast variance) then 2D RoPE, ONE cast back.
+
+    Mirrors `_qk_prep_xla`.  x: (B, N, H, D); cos/sin: (B, >= N, D) packed
+    tables (`layers.rope.pack_rope_tables`), row i for token i, as the
+    kernel reads them."""
+    dt = x.dtype
+    x = x.float()
+    if gamma is not None:
+        mu = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mu * mu, min=0.0)
+        x = (x - mu) * torch.rsqrt(var + eps) * gamma + beta
+    if cos is not None:
+        n = x.shape[1]
+        x = x * cos[:, :n, None, :] + rotate_half_2d(x) * sin[:, :n, None, :]
+    return x.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# kernel binding
+
+@functools.cache
+def _kernel():
+    lib = cuda_build.load("flash_attention")
+    fn = lib.iggt_flash_attention
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn.argtypes = (
+        [i, i, i, i]                 # dtype, head_dim, use_norm, use_rope
+        + [p, p, p, p]               # q, k, v, o
+        + [p]                        # key_bias
+        + [p, p, ll, ll]             # cos, sin, rope batch / row strides
+        + [p, p, p, p]               # gamma_q, beta_q, gamma_k, beta_k
+        + [i, i, i, i]               # B, H, Nq, Nk
+        + [ll] * 9                   # q, k, v strides (batch, row, head)
+        + [f, f, p]                  # scale, eps, stream
+    )
+    fn.restype = ctypes.c_int
+    lib.iggt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.iggt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5):
+    """Check the inputs, allocate the output and launch the kernel."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.dim() != 4 or t.stride(-1) != 1:
+            raise ValueError(f"{name} must be (B, N, H, D) with a contiguous last dim")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("q, k and v must share dtype and device")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported dtype {q.dtype}: the kernel takes bf16 and fp32")
+    B, Nq, H, D = q.shape
+    Nk = k.shape[1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"unsupported head dim {D}: the kernel takes {HEAD_DIMS}")
+    if k.shape != (B, Nk, H, D) or v.shape != (B, Nk, H, D):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if key_bias is not None:
+        if key_bias.shape != (B, Nk):
+            raise ValueError(f"key_bias must be (B, Nk) = {(B, Nk)}")
+        key_bias = key_bias.to(device=q.device, dtype=torch.float32).contiguous()
+    rope_sb = rope_sn = 0
+    if cos is not None:
+        cos = cos.to(device=q.device, dtype=torch.float32)
+        sin = sin.to(device=q.device, dtype=torch.float32)
+        for t in (cos, sin):
+            if (t.dim() != 3 or t.shape[0] != B or t.shape[1] < max(Nq, Nk)
+                    or t.shape[2] != D or t.stride(-1) != 1):
+                raise ValueError("rope tables must be (B, N, D) with a contiguous last dim")
+        if cos.stride() != sin.stride():
+            raise ValueError("rope cos and sin tables must share strides")
+        rope_sb, rope_sn = cos.stride(0), cos.stride(1)
+    if norm is not None:
+        norm = [t.to(device=q.device, dtype=torch.float32).contiguous() for t in norm]
+        if any(t.shape != (D,) for t in norm):
+            raise ValueError("qk-norm params must each be (D,)")
+    gq, bq, gk, bk = norm if norm is not None else (None,) * 4
+
+    out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
+    lib = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.iggt_flash_attention(
+            _DTYPE_CODE[q.dtype], D, int(norm is not None), int(cos is not None),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _ptr(key_bias),
+            _ptr(cos), _ptr(sin), rope_sb, rope_sn,
+            _ptr(gq), _ptr(bq), _ptr(gk), _ptr(bk),
+            B, H, Nq, Nk,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            1.0 / math.sqrt(D), eps, stream,
+        )
+    if err != 0:
+        raise RuntimeError("flash attention kernel failed to launch: "
+                           + lib.iggt_cuda_error_string(err).decode())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fused attention, (B, Nq, H, D) x (B, Nk, H, D) -> (B, Nq, H, D).
+
+    ``key_bias`` (B, Nk) fp32 is added to every query's logits.  CUDA
+    tensors launch the kernel; CPU tensors take `flash_attention_plain`."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, key_bias)
+    out = _launch(q, k, v, key_bias)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_fused(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    qk_norm_params: Optional[Sequence[torch.Tensor]] = None,
+    key_bias: Optional[torch.Tensor] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Flash attention with the q/k prep inside the kernel.
+
+    q/k/v: (B, N, H, D) in the compute dtype, *before* norm/RoPE.
+    rope_cos/rope_sin: (B, N, D) fp32 packed tables.
+    qk_norm_params: (gamma_q, beta_q, gamma_k, beta_k), each (D,) fp32."""
+    if q.device.type == "cpu":
+        gq, bq, gk, bk = qk_norm_params if qk_norm_params is not None else (None,) * 4
+        q = qk_prep_plain(q, gq, bq, rope_cos, rope_sin, eps)
+        k = qk_prep_plain(k, gk, bk, rope_cos, rope_sin, eps)
+        return flash_attention_plain(q, k, v, key_bias)
+    out = _launch(q, k, v, key_bias, rope_cos, rope_sin, qk_norm_params, eps)
+    flash_attention_fused.launches += 1
+    return out
+
+
+flash_attention_fused.launches = 0
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    qk_norm_params: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Default attention: the fused kernel when the call carries the q/k prep
+    (the frame blocks), the flash kernel otherwise (DINOv2 blocks, the part
+    head's cross-attention)."""
+    if rope_cos is not None or qk_norm_params is not None:
+        return flash_attention_fused(q, k, v, rope_cos, rope_sin, qk_norm_params,
+                                     key_bias)
+    return flash_attention(q, k, v, key_bias)
+
+
+attention.supports_fused_qk_prep = True
+
+
+def global_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    qk_norm_params: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The aggregator's global blocks: plain q/k prep (one rounding after
+    LN + RoPE, as `_qk_prep_xla`), then the flash kernel at any length."""
+    gq, bq, gk, bk = qk_norm_params if qk_norm_params is not None else (None,) * 4
+    if rope_cos is not None or gq is not None:
+        q = qk_prep_plain(q, gq, bq, rope_cos, rope_sin)
+        k = qk_prep_plain(k, gk, bk, rope_cos, rope_sin)
+    return flash_attention(q, k, v, key_bias)
+
+
+global_attention.supports_fused_qk_prep = True
