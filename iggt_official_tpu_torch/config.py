@@ -5,7 +5,8 @@ everything the port builds, so `ModelConfig().scaled(...)` describes the
 same network in both packages.  Fields that select code not ported yet
 (VGGT, the track head, the bf16 head mode, the tracker DPT variant, the
 upstream-HAT window partition, token merging, the fused-LayerNorm kernel,
-the TPU mesh) are left out until that code lands.
+the TPU mesh, the GLB export's confidence threshold and sky masking) are
+left out until that code lands.
 """
 
 from __future__ import annotations
@@ -187,7 +188,28 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ClusteringConfig:
+    """HDBSCAN / KNN post-processing (`demo.py:62-83`, "Large" preset)."""
+
+    eps: float = 0.06
+    min_samples: int = 100
+    min_cluster_size: int = 500
+    knn_k: int = 20
+    # exact=True runs the weighted HDBSCAN at full pixel density (the
+    # reference algorithm verbatim; minutes at demo scale); False clusters a
+    # <=150k uniform subsample with density-scaled parameters
+    exact: bool = False
+
+
+# Presets from demo.py:63-83
+CLUSTERING_SMALL = ClusteringConfig(eps=0.005, min_samples=50)
+CLUSTERING_MEDIUM = ClusteringConfig(eps=0.01, min_samples=100)
+CLUSTERING_LARGE = ClusteringConfig(eps=0.06, min_samples=100)
+
+
+@dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Execution knobs for the inference app."""
 
     image_size: Tuple[int, int] = (504, 336)  # (W, H)
+    clustering: ClusteringConfig = dataclasses.field(default_factory=ClusteringConfig)

@@ -28,7 +28,7 @@ from typing import Dict, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("flash_attention",)
+SOURCES = ("flash_attention", "nn1")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 

@@ -12,7 +12,9 @@ ulps of the largest output: both sides keep fp32 logits and round the output
 to bf16 once, the kernel its unnormalized probabilities and the plain version
 its normalized ones, and the errors seen at the main path's shapes are one
 ulp of max|ref|.  The limit scales with the output because attention outputs
-shrink as ~sqrt(e / N) with N keys.
+shrink as ~sqrt(e / N) with N keys.  nn1: equal indices (kernel and plain
+version round every subtraction, square and addition alike, and both take
+the smallest index among equal distances).
 """
 
 import pytest
@@ -86,3 +88,35 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros((1, 8, 2, 64), device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_nn1_kernel_matches_plain_at_backfill_shape(cuda_device):
+    """65,536 queries against the 150,000-point clustering subsample: the
+    kernel and the plain version round alike, so the indices are equal."""
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ref = torch.randn((150_000, 8), generator=gen, device=cuda_device)
+    qry = torch.randn((65_536, 8), generator=gen, device=cuda_device)
+    n = nn1_mod.nn1.launches
+    out = nn1_mod.nn1(qry, ref)
+    torch.cuda.synchronize()
+    assert nn1_mod.nn1.launches == n + 1
+    assert torch.equal(out, nn1_mod.nn1_plain(qry, ref))
+
+
+@pytest.mark.cuda
+def test_nn1_kernel_ties_go_to_the_smallest_index(cuda_device):
+    """Duplicated refs (ties) and queries that hit a ref exactly, with a
+    ragged last reference tile and a ragged last query block."""
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    ref = torch.randn((2_500, 8), generator=gen, device=cuda_device)
+    ref[1_250:1_280] = ref[:30]
+    qry = torch.randn((1_000, 8), generator=gen, device=cuda_device)
+    qry[:50] = ref[10:60]
+    out = nn1_mod.nn1(qry, ref)
+    assert torch.equal(out, nn1_mod.nn1_plain(qry, ref))
+    assert torch.equal(out[:20].cpu(), torch.arange(10, 30))

@@ -169,7 +169,8 @@ def _python_sources():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    banned = ("jax", "jaxlib", "flax", "iggt_official_tpu")
+    # nor sklearn or matplotlib, which the card machine does not have
+    banned = ("jax", "jaxlib", "flax", "iggt_official_tpu", "sklearn", "matplotlib")
     sources = list(_python_sources())
     assert len(sources) > 20
     for path in sources:
