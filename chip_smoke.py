@@ -12,29 +12,51 @@ order; any failure exits non-zero:
    build's time and the ptxas register / spill report are printed.
 3. kernels: each kernel's wrapper at the main path's shapes (all three
    requests) against its plain PyTorch version on the same inputs, and
-   planted faults shown to fail the check.  Flash attention: error against a
+   planted faults shown to fail the check.  Flash attention (the part head's
+   cross-attention in fp32 and, as bf16 heads run it, in bf16): error against a
    limit (printed with max|ref|); faults are a wrong softmax scale, a dropped
    key tile, a wrong RoPE sign.  nn1: index mismatches, limit 0 (the kernel
    rounds as the plain version does); faults are a dropped last reference
-   tile, a dropped last feature, and reversed tie order.  Kernel, plain and
-   one PyTorch call computing the same function (`library_ms`, a yardstick
-   the port never calls) timed with CUDA events.
-4. agreement: a scaled IGGT (fp32 trunk, then bf16 trunk), on the card through
-   the kernels and on the CPU through the plain versions, same weights and
-   images; then the post-processing (PCA, smoothing, `_cluster_mv_device`)
-   of one synthetic scene on the card and on the CPU.
+   tile, a dropped last feature, and reversed tie order.  fused_ln: at every
+   request's row count (eps 1e-5 and 1e-6, bf16), fp32 rows, and the scaled
+   model's width; limit 1 bf16 ulp (1e-6 relative in fp32), with the share
+   of elements that differ; faults are the last 8-element chunk left out of
+   the reductions, the bias not added, the weight not applied.  bucket_topk
+   at Q = R = 150,000, k = 64, nb = 1024: 0 index mismatches in the bucket
+   minima and the top-k; faults are bucket = index mod (nb - 1), reversed tie
+   order, a dropped last reference tile.  Kernel, plain and one PyTorch call
+   computing the same function (`library_ms`, a yardstick the port never
+   calls) timed with CUDA events.
+4. agreement: a scaled IGGT on the card through the kernels and on the CPU
+   through the plain versions, same weights and images: fp32 trunk, bf16
+   trunk, bf16 trunk with `fused_ln=True`, bf16 trunk with bf16 heads (its
+   own limits, and a control against the CPU's fp32 heads that must fail
+   them); then
+   the post-processing (PCA, smoothing, `_cluster_mv_device`) of one
+   synthetic scene on the card and on the CPU.
 5. postproc: the 10-view 504x336 synthetic scene of the JAX package's bench
    (M = 1,693,440, six regions) through the port's smoothing and clustering
    on the card, with the wall time of each stage; it must give 6 clusters.
+   Then the bucket top-k path: `bucket_topk` (no module calls it, as in the
+   JAX package) as a core-kNN candidate on the clustering's 150,000-point
+   subsample of that scene, with its recall against the exact core kNN.
 6. requests: the full-width `ModelConfig()` (ViT-L/14 trunk in bf16, fp32
-   heads, random weights from a seed) through `IGGTProcessor` on synthetic
-   seeded scenes: 3 and 8 views at 504x336, 8 views at 518x518, with the
-   post-processing.  Each prints the median wall time and views/s of three
+   heads, random weights from a seed) through `IGGTProcessor.process_scene`
+   on synthetic seeded scenes: 3 views at 504x336 (with seeded ground truth,
+   so it evaluates), 8 views at 504x336 and 8 views at 518x518, each writing
+   the demo's whole file set (npz, masks, PCA, depth_vis, three GLBs, the
+   evaluation report).  Each prints the median wall time and views/s of three
    requests, of three bare forwards and of three post-processings (after a
    warm-up), peak memory, output shapes, ranges and finiteness, the clusters
-   found, and the kernel launch counts of the first timed request (counts
-   set to 0 just before it); then one 518x518 forward under `torch.profiler`
-   gives device time by kernel bucket and the device's busy share.
+   found, the kernel launch counts of the first timed request (counts set to
+   0 just before it), and the stages of one traced request (forward,
+   post-processing stages, evaluation, writes, GLB export).  Then the 8-view
+   518x518 scene with `RuntimeConfig(fused_ln=True)` and with
+   `head_dtype="bfloat16"` (same weights): the same request numbers, launch
+   counts (144 fused_ln per forward), the difference from the baseline
+   request; the three bare forwards timed in turns; one forward of each
+   under `torch.profiler` gives device time by kernel bucket and the
+   device's busy share.
 
 The line before the last is the card's nvidia-smi line, the one before that a
 JSON summary of the kernels, and the last line
@@ -158,15 +180,26 @@ KERNEL_CASES = (
     ("frame block q/k prep, 3 views 504x336", "flash_attention_fused", (3, 869, 16, 64), "bfloat16",
      False),
     ("key_bias", "flash_attention", (2, 1374, 16, 64), "bfloat16", True),
+    # head_dtype="bfloat16": the part head's cross-attention in bf16
+    ("part cross-attention, bf16 heads, 8 views 518px", "flash_attention", (8, 1369, 8, 32),
+     "bfloat16", False),
+    ("part cross-attention, bf16 heads, 8 views 504x336", "flash_attention", (8, 864, 8, 32),
+     "bfloat16", False),
+    ("part cross-attention, bf16 heads, 3 views 504x336", "flash_attention", (3, 864, 8, 32),
+     "bfloat16", False),
 )
 PATCH_GRID = {1374: (37, 37), 869: (24, 36)}     # tokens per view -> (h, w) patches
 MAIN_CASE = {"flash_attention": "global block, 8 views 518px",
              "flash_attention_fused": "frame block q/k prep, 8 views 518px",
-             "nn1": "backfill, 8 views 518x518"}
+             "nn1": "backfill, 8 views 518x518",
+             "fused_ln": "frame/global pre-norm, 8 views 518px",
+             "bucket_topk": "core kNN candidate, Q = R = 150000"}
 REPLACES = {
     "flash_attention": "iggt_official_tpu/ops/flash_attention.py:117",
     "flash_attention_fused": "iggt_official_tpu/ops/flash_attention.py:335",
     "nn1": "iggt_official_tpu/ops/nn1_pallas.py:82",
+    "fused_ln": "iggt_official_tpu/ops/fused_ln.py:39",
+    "bucket_topk": "iggt_official_tpu/ops/nn1_pallas.py:190",
 }
 KEY_TILE = 64
 
@@ -299,7 +332,9 @@ NN1_CASES = (
 )
 SOURCE = {"flash_attention": "iggt_official_tpu_torch/csrc/flash_attention.cu",
           "flash_attention_fused": "iggt_official_tpu_torch/csrc/flash_attention.cu",
-          "nn1": "iggt_official_tpu_torch/csrc/nn1.cu"}
+          "nn1": "iggt_official_tpu_torch/csrc/nn1.cu",
+          "fused_ln": "iggt_official_tpu_torch/csrc/fused_ln.cu",
+          "bucket_topk": "iggt_official_tpu_torch/csrc/nn1.cu"}
 
 
 def nn1_bound_ms(Q: int, R: int, D: int = 8):
@@ -393,6 +428,228 @@ def check_nn1():
     return results
 
 
+LN_ROWS = {"8 views 518px": 8 * 1374, "8 views 504x336": 8 * 869, "3 views 504x336": 3 * 869}
+LN_CASES = tuple(
+    (f"{where} pre-norm, {req}", rows, 1024, "bfloat16", "bfloat16", eps)
+    for req, rows in LN_ROWS.items()
+    for where, eps in (("frame/global", 1e-5), ("DINOv2", 1e-6))
+) + (
+    ("fp32 trunk pre-norm, 8 views 518px", 8 * 1374, 1024, "float32", "float32", 1e-5),
+    ("scaled model width, ragged rows", 1001, 64, "bfloat16", "bfloat16", 1e-5),
+)
+FP32_LN_REL = 1e-6
+
+
+def bf16_ulps(out, ref):
+    """|out - ref| in units of the bf16 spacing at max(|out|, |ref|)."""
+    import torch
+
+    a, b = out.float(), ref.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def ln_error(out, ref, dtype_name):
+    """(error, limit): bf16 output in ulps against 1; fp32 as max|out - ref|
+    over max|ref| against 1e-6."""
+    if dtype_name == "bfloat16":
+        return bf16_ulps(out, ref).max().item(), 1.0
+    ref = ref.float()
+    return ((out.float() - ref).abs().max() / ref.abs().max()).item(), FP32_LN_REL
+
+
+def ln_bound_ms(rows, D, in_name, out_name):
+    """Each row read once and written once over the HBM rate (gamma and beta
+    too), against 7 fp32 operations per element over the fp32 peak."""
+    size = {"bfloat16": 2, "float32": 4}
+    t_bytes = (rows * D * (size[in_name] + size[out_name]) + 2 * D * 4) / PEAK_BYTES_PER_S
+    t_ops = 7 * rows * D / PEAK_OPS_PER_S["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def check_fused_ln():
+    """Each case: the kernel against `fused_layernorm_plain` on rows with a
+    per-row offset and three outlier channels, the share of elements that
+    differ, three planted faults that must exceed the limit (the last 8-element
+    chunk of each row left out of the reductions, the bias not added, the
+    weight not applied), and times: kernel, plain, `F.layer_norm`."""
+    import torch
+    import torch.nn.functional as F
+
+    from iggt_official_tpu_torch.ops.fused_ln import fused_layernorm, fused_layernorm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    results = []
+    for label, rows, D, in_name, out_name, eps in LN_CASES:
+        in_dt, out_dt = getattr(torch, in_name), getattr(torch, out_name)
+        x = (2 * torch.randn((rows, D), generator=gen, device="cuda")
+             + torch.randn((rows, 1), generator=gen, device="cuda"))
+        x[:, [3, D // 2 + 5, D - 4]] *= 25   # "massive activation" channels, one in the last chunk
+        x = x.to(in_dt)
+        w = 1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")
+        b = 0.1 * torch.randn((D,), generator=gen, device="cuda")
+
+        def run_kernel(x=x, w=w, b=b, eps=eps, out_dt=out_dt):
+            return fused_layernorm(x, w, b, eps, out_dt)
+
+        def run_plain():
+            return fused_layernorm_plain(x, w, b, eps, out_dt)
+
+        out = run_kernel()
+        torch.cuda.synchronize()
+        ref = run_plain()
+        err, limit = ln_error(out, ref, out_name)
+        differ = (out != ref).float().mean().item()
+        faults = {
+            "last chunk out of the reductions": ln_error(
+                run_kernel(x[:, :D - 8], w[:D - 8], b[:D - 8]), ref[:, :D - 8], out_name)[0],
+            "bias not added": ln_error(run_kernel(b=torch.zeros_like(b)), ref, out_name)[0],
+            "weight not applied": ln_error(run_kernel(w=torch.ones_like(w)), ref, out_name)[0],
+        }
+        caught = all(e > limit for e in faults.values())
+        ms = time_ms(run_kernel, iters=50, warmup=5)
+        plain_ms = time_ms(run_plain, iters=10, warmup=2)
+        wl, bl = w.to(in_dt), b.to(in_dt)
+        library_ms = time_ms(lambda: F.layer_norm(x, (D,), wl, bl, eps), iters=50, warmup=5)
+        bound_ms, bound_by = ln_bound_ms(rows, D, in_name, out_name)
+        ok = bool(torch.isfinite(out).all()) and err <= limit and caught
+        unit = "ulp" if out_name == "bfloat16" else "rel"
+        log(f"[kernels] fused_ln {label:40s} ({rows}, {D}) {in_name}->{out_name} eps {eps:g}: "
+            f"max err {err:.3g} {unit} (limit {limit:g}), {100 * differ:.4f}% of elements "
+            f"differ {'ok' if ok else 'FAIL'} | ms={ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (F.layer_norm)")
+        log("[kernels]   planted faults: "
+            + ", ".join(f"{name} {e:.3g} {unit}" for name, e in faults.items())
+            + (" -- all caught" if caught else " -- NOT ALL CAUGHT"))
+        results.append(dict(
+            kernel="fused_ln", label=label, shape=[rows, D], dtype=f"{in_name}->{out_name}",
+            eps=eps, max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            err=err, err_unit=unit, limit=limit, differ_share=differ, fault_errs=faults,
+            ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+            bound_by=bound_by,
+        ))
+        del x, out, ref
+    torch.cuda.empty_cache()
+    return results
+
+
+BT_Q = 150_000           # the clustering subsample: Q = R, self-kNN as its core kNN
+BT_K = 64
+BT_NB = 1024
+BT_COMPARE = 16_384      # queries compared with the plain version (and the library slice)
+BT_DUP = 64              # planted duplicates: in the same bucket, and across buckets
+
+
+def bucket_topk_inputs(gen):
+    """Clustered 8-D features (6 unit centres plus noise, as `nn1_inputs`),
+    query = ref; references 0..63 duplicated at 73 * 1024 + t (same bucket: a
+    tie inside the bucket) and at Q / 2 + t (another bucket: a tie between
+    buckets)."""
+    import torch
+
+    centers = torch.randn((6, 8), generator=gen, device=gen.device)
+    centers /= centers.norm(dim=1, keepdim=True)
+    lab = torch.randint(0, 6, (BT_Q,), generator=gen, device=gen.device)
+    pts = centers[lab] + 0.05 * torch.randn((BT_Q, 8), generator=gen, device=gen.device)
+    t = torch.arange(BT_DUP, device=pts.device)
+    pts[73 * BT_NB + t] = pts[t]
+    pts[BT_Q // 2 + t] = pts[t]
+    return pts
+
+
+def within_bucket_reversal(R: int, nb: int):
+    """(perm, inverse): ``ref[perm]`` reverses the order of the references
+    inside every bucket (index mod nb) and keeps each bucket's members."""
+    import torch
+
+    idx = torch.arange(R)
+    j, b = idx // nb, idx % nb
+    count = (R - b + nb - 1) // nb
+    pos = (count - 1 - j) * nb + b        # where reference idx goes
+    perm = torch.empty_like(idx)
+    perm[pos] = idx
+    return perm, pos
+
+
+def bucket_topk_bound_ms(Q: int, R: int, k: int, D: int = 8):
+    """3 * Q * R * D fp32 operations (the Pallas CostEstimate) over the fp32
+    peak, against the inputs read once and the (Q, k) distances and int64
+    indices written once; and the no-FMA instruction floor."""
+    t_ops = 3 * Q * R * D / PEAK_OPS_PER_S["float32"]
+    t_bytes = ((Q + R) * D * 4 + Q * k * 12) / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes > t_ops else "operations",
+            2 * t_ops * 1e3)
+
+
+def check_bucket_topk():
+    """The kernel at full Q against the plain version on the first BT_COMPARE
+    queries: 0 index mismatches in the (Q, nb) bucket minima and in the top-k,
+    equal squared distances and distances; three planted faults that must
+    mismatch: bucket = index mod (nb - 1), reversed tie order inside each
+    bucket, the last tile of nb references dropped; then times: the wrapper
+    (kernel + stable sort), the kernel alone, the plain version at full Q, and
+    `torch.cdist` + `torch.topk` on BT_COMPARE queries (kernel there too)."""
+    import torch
+
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    pts = bucket_topk_inputs(gen)
+    Q, C, k, nb = BT_Q, BT_COMPARE, BT_K, BT_NB
+    bd, bi = nn1_mod.bucket_minima_kernel(pts, pts, nb)
+    torch.cuda.synchronize()
+    pd, pi = nn1_mod.bucket_minima_plain(pts[:C], pts, nb)
+    dist, idx = nn1_mod.topk_over_buckets(bd[:C], bi[:C], k)
+    want_d, want_i = nn1_mod.bucket_topk_plain(pts[:C], pts, k, nb)
+    mm_min = int((bi[:C] != pi).sum())
+    mm_topk = int((idx != want_i).sum())
+    d_equal = bool(torch.equal(bd[:C], pd)) and bool(torch.equal(dist, want_d))
+    self_first = bool((dist[:, 0] == 0).all())
+
+    kept = Q - (Q % nb or nb)
+    perm, pos = within_bucket_reversal(Q, nb)
+    perm, pos = perm.to(pts.device), pos.to(pts.device)
+    _, rev_i = nn1_mod.topk_over_buckets(*nn1_mod.bucket_minima_kernel(pts[:C], pts[perm], nb), k)
+    faults = {
+        "bucket = index mod (nb - 1)": nn1_mod.topk_over_buckets(
+            *nn1_mod.bucket_minima_kernel(pts[:C], pts, nb - 1), k)[1],
+        "reversed tie order": perm[rev_i],
+        "last reference tile dropped": nn1_mod.topk_over_buckets(
+            *nn1_mod.bucket_minima_kernel(pts[:C], pts[:kept], nb), k)[1],
+    }
+    fault_mm = {name: int((j != want_i).sum()) for name, j in faults.items()}
+    caught = all(m > 0 for m in fault_mm.values())
+
+    ms = time_ms(lambda: nn1_mod.bucket_topk(pts, pts, k, nb), iters=3, warmup=1)
+    kernel_ms = time_ms(lambda: nn1_mod.bucket_minima_kernel(pts, pts, nb), iters=3, warmup=1)
+    plain_ms = time_ms(lambda: nn1_mod.bucket_topk_plain(pts, pts, k, nb), iters=1, warmup=0)
+    library_ms = time_ms(lambda: torch.topk(torch.cdist(pts[:C], pts), k, largest=False),
+                         iters=3, warmup=1)
+    slice_ms = time_ms(lambda: nn1_mod.bucket_topk(pts[:C], pts, k, nb), iters=3, warmup=1)
+    bound_ms, bound_by, floor_ms = bucket_topk_bound_ms(Q, Q, k)
+    ok = mm_min == 0 and mm_topk == 0 and d_equal and self_first and caught
+    log(f"[kernels] bucket_topk Q=R={Q} k={k} nb={nb}: on {C} queries {mm_min} bucket-minimum "
+        f"and {mm_topk} top-k index mismatches (limit 0), distances equal {d_equal}, self "
+        f"at distance 0 {self_first} {'ok' if ok else 'FAIL'} | ms={ms:.3f} (kernel alone "
+        f"{kernel_ms:.3f}) bound_ms={bound_ms:.3f} ({bound_by}; no-FMA instruction floor "
+        f"{floor_ms:.3f}) plain_ms={plain_ms:.1f} | on {C} queries: library_ms={library_ms:.3f} "
+        f"(cdist + topk) bucket_topk {slice_ms:.3f}")
+    log("[kernels]   planted faults: "
+        + ", ".join(f"{name} {m} mismatches" for name, m in fault_mm.items())
+        + (" -- all caught" if caught else " -- NOT ALL CAUGHT"))
+    result = dict(
+        kernel="bucket_topk", label=f"core kNN candidate, Q = R = {Q}", shape=[Q, Q, 8, k, nb],
+        dtype="float32", max_abs_err=float(mm_min + mm_topk), mismatches=mm_min + mm_topk,
+        compared=C, distances_equal=d_equal, fault_mismatches=fault_mm, ok=ok, ms=ms,
+        kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, library_queries=C,
+        library_kernel_ms=slice_ms, bound_ms=bound_ms, bound_by=bound_by,
+        instruction_floor_ms=floor_ms,
+    )
+    del pts, bd, bi, pd, pi, faults
+    torch.cuda.empty_cache()
+    return [result]
+
+
 CASE_KEYS = {
     "flash_attention": ("label", "shape", "dtype", "key_bias", "max_abs_err", "limit",
                         "max_abs_ref", "fault_errs", "ms", "plain_ms", "bound_ms",
@@ -400,13 +657,26 @@ CASE_KEYS = {
     "nn1": ("label", "shape", "mismatches", "compared", "fault_mismatches", "ms",
             "plain_ms", "bound_ms", "bound_by", "instruction_floor_ms", "library_ms",
             "library_queries", "library_kernel_ms"),
+    "fused_ln": ("label", "shape", "dtype", "eps", "max_abs_err", "err", "err_unit", "limit",
+                 "differ_share", "fault_errs", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms"),
+    "bucket_topk": ("label", "shape", "mismatches", "compared", "distances_equal",
+                    "fault_mismatches", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                    "instruction_floor_ms", "library_ms", "library_queries",
+                    "library_kernel_ms"),
 }
 CASE_KEYS["flash_attention_fused"] = CASE_KEYS["flash_attention"]
+LAUNCHES_FROM = {
+    "fused_ln": "the 8 views 518x518 request with RuntimeConfig(fused_ln=True)",
+    "bucket_topk": "the bucket top-k path (core-kNN candidate) on the 10-view scene's "
+                   "150,000-point subsample; no module calls it, as in the JAX package",
+}
 
 
 def kernels_summary(results, launches):
     out = []
-    for kernel in ("flash_attention", "flash_attention_fused", "nn1"):
+    for kernel in ("flash_attention", "flash_attention_fused", "nn1", "fused_ln",
+                   "bucket_topk"):
         cases = [r for r in results if r["kernel"] == kernel]
         if not cases:
             continue
@@ -425,11 +695,13 @@ def kernels_summary(results, launches):
             "library_ms": main["library_ms"],
             "shape": main["shape"],
             **{k: main[k] for k in ("instruction_floor_ms", "library_queries",
-                                    "library_kernel_ms") if k in main},
+                                    "library_kernel_ms", "kernel_ms") if k in main},
             "cases": [{k: r[k] for k in CASE_KEYS[kernel]} for r in cases],
         })
-        if kernel == "nn1":
+        if kernel in ("nn1", "bucket_topk"):
             out[-1]["max_abs_err_is"] = "index mismatches against the plain version"
+        if kernel in LAUNCHES_FROM:
+            out[-1]["launches_from"] = LAUNCHES_FROM[kernel]
     return out
 
 
@@ -449,37 +721,96 @@ def rel_err(ref, out) -> float:
     return ((ref - out).abs().max() / ref.abs().max().clamp_min(1e-12)).item()
 
 
+AGREEMENT_VARIANTS = (
+    # (label, trunk dtype, head dtype, fused_ln)
+    ("fp32 trunk", "float32", "float32", False),
+    ("bf16 trunk", "bfloat16", "float32", False),
+    ("bf16 trunk, fused_ln", "bfloat16", "float32", True),
+    ("bf16 trunk, bf16 heads", "bfloat16", "bfloat16", False),
+)
+BF16_HEADS_MEDIAN, BF16_HEADS_MAX = 8e-3, 4e-2
+# bf16 heads: the decode heads' bf16 convolutions and matmuls round in other
+# orders on the two devices.  Readings on this model: max 9.6e-3 to 2.6e-2,
+# medians 1.4e-3 to 5.2e-3 (|a - b| / max(|a|, 1), the JAX package's measure
+# of this mode); the limits give 1.5x room.  The control -- the card's bf16
+# heads against the CPU's fp32 heads -- reads max 3.8e-2 to 7.3e-2 and medians
+# up to 8.8e-3 on the CPU, and must fail them.
+
+
+def median_rel(ref, out) -> float:
+    ref, out = ref.float().cpu(), out.float().cpu()
+    return ((ref - out).abs() / ref.abs().clamp_min(1.0)).median().item()
+
+
+def bf16_heads_errors(ref, out):
+    """(passes the bf16-heads limits, description) of ``out`` against ``ref``."""
+    errs = {k: rel_err(ref[k], out[k]) for k in OUTPUTS}
+    medians = {k: median_rel(ref[k], out[k]) for k in OUTPUTS}
+    good = (all(e < BF16_HEADS_MAX for e in errs.values())
+            and all(m < BF16_HEADS_MEDIAN for m in medians.values()))
+    text = (f"max {max(errs.values()):.3e} (limit {BF16_HEADS_MAX:.0e}), median "
+            f"{max(medians.values()):.3e} (limit {BF16_HEADS_MEDIAN:.0e}); "
+            + ", ".join(f"{k}={errs[k]:.2e}/{medians[k]:.2e}" for k in OUTPUTS))
+    return good, text
+
+
 def check_agreement() -> bool:
+    """The scaled IGGT on the card (kernels) against the CPU (plain versions),
+    same weights and images, in each of AGREEMENT_VARIANTS; launch counts of
+    the card's forward must be the path's.  The bf16-heads variant is held
+    to its own limits, and its control (against the CPU's fp32 heads, the
+    "bf16 trunk" variant's output) must fail them."""
     import torch
 
     from iggt_official_tpu_torch.config import ModelConfig
     from iggt_official_tpu_torch.models.vggt import build_model
     from iggt_official_tpu_torch.ops import flash_attention as fa
+    from iggt_official_tpu_torch.ops.fused_ln import fused_layernorm
 
     ok = True
     imgs = np.random.default_rng(SEED).uniform(0, 1, (1, 2, 112, 154, 3)).astype(np.float32)
-    for trunk in ("float32", "bfloat16"):
+    weights = None
+    refs = {}
+    for label, trunk, head, fused in AGREEMENT_VARIANTS:
         cfg = dataclasses.replace(
             ModelConfig().scaled(embed_dim=128, depth=2, num_heads=2, vit_depth=2,
-                                 img_size=112), trunk_dtype=trunk)
+                                 img_size=112), trunk_dtype=trunk, head_dtype=head)
         cpu = build_model(cfg, "cpu", seed=SEED)
+        weights = weights or cpu.state_dict()
+        cpu.load_state_dict(weights)
         card = build_model(cfg, "cuda", seed=SEED + 1)
-        card.load_state_dict(cpu.state_dict())
+        card.load_state_dict(weights)
         with torch.inference_mode():
-            ref = cpu(torch.from_numpy(imgs))
+            ref = cpu(torch.from_numpy(imgs), fused_ln=fused)
             fa.flash_attention.launches = fa.flash_attention_fused.launches = 0
-            out = card(torch.from_numpy(imgs).cuda())
+            fused_layernorm.launches = 0
+            out = card(torch.from_numpy(imgs).cuda(), fused_ln=fused)
             torch.cuda.synchronize()
-        counts = (fa.flash_attention_fused.launches, fa.flash_attention.launches)
-        want = (cfg.aggregator.depth, cfg.aggregator.vit.depth + cfg.aggregator.depth + 1)
-        errs = {k: rel_err(ref[k], out[k]) for k in OUTPUTS}
-        good = counts == want and all(e < AGREEMENT_TOL[trunk] for e in errs.values())
+        agg = cfg.aggregator
+        counts = (fa.flash_attention_fused.launches, fa.flash_attention.launches,
+                  fused_layernorm.launches)
+        want = (agg.depth, agg.vit.depth + agg.depth + 1,
+                2 * (agg.vit.depth + 2 * agg.depth) if fused else 0)
+        refs[label] = ref
+        launch_text = (f"launches fused={counts[0]} flash={counts[1]} fused_ln={counts[2]} "
+                       f"(want {want[0]}, {want[1]}, {want[2]})")
+        if head == "bfloat16":
+            good, text = bf16_heads_errors(ref, out)
+            control_passes, control = bf16_heads_errors(refs["bf16 trunk"], out)
+            good &= counts == want and not control_passes
+            log(f"[agreement] scaled IGGT, {label}, 2 views 112x154: card vs CPU rel err "
+                f"max / median {text}; {launch_text} " + ("ok" if good else "FAIL"))
+            log(f"[agreement]   control, card bf16 heads vs CPU fp32 heads: {control} -- "
+                + ("fails the limits, as it must" if not control_passes
+                   else "PASSES the limits: they cannot tell bf16 from fp32 heads"))
+        else:
+            errs = {k: rel_err(ref[k], out[k]) for k in OUTPUTS}
+            good = all(e < AGREEMENT_TOL[trunk] for e in errs.values()) and counts == want
+            log(f"[agreement] scaled IGGT, {label}, 2 views 112x154: card vs CPU max rel err "
+                f"{max(errs.values()):.3e} (limit {AGREEMENT_TOL[trunk]:.0e}); "
+                + ", ".join(f"{k}={e:.2e}" for k, e in errs.items())
+                + f"; {launch_text} " + ("ok" if good else "FAIL"))
         ok &= good
-        log(f"[agreement] scaled IGGT, {trunk} trunk, 2 views 112x154: card vs CPU "
-            f"max rel err {max(errs.values()):.3e} (limit {AGREEMENT_TOL[trunk]:.0e}); "
-            + ", ".join(f"{k}={e:.2e}" for k, e in errs.items())
-            + f"; launches fused={counts[0]} flash={counts[1]} (want {want[0]}, {want[1]}) "
-            + ("ok" if good else "FAIL"))
         del cpu, card
     torch.cuda.empty_cache()
     return ok
@@ -560,14 +891,21 @@ PP_SCENE = (10, 336, 504)  # bench.py's postproc smoke: M = 1,693,440
 PP_SCENE_CLUSTERS = 6      # the JAX package's record on this scene (BENCH_r05.json)
 
 
-def run_postproc() -> bool:
+def run_postproc(launches_out: dict) -> bool:
     """The 10-view synthetic scene through the port's smoothing and
     clustering on the card, traced stage by stage; nn1 counts set to 0 just
-    before and read just after."""
+    before and read just after.  Then the bucket top-k path: `bucket_topk` as
+    a core-kNN candidate (what the JAX package's `benchmarks/ab_bucket_topk.py`
+    measured) on the clustering's own 150,000-point subsample of this scene,
+    k = 64, its count set to 0 just before and read just after, its recall
+    against the clustering's exact core kNN (`brute_knn`)."""
     import torch
 
-    from iggt_official_tpu_torch.ops.cluster import cluster_features_to_masks_mv
-    from iggt_official_tpu_torch.ops.knn import knn_smooth_features
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+    from iggt_official_tpu_torch.ops.cluster import (
+        BUDGET, _subsample, cluster_features_to_masks_mv,
+    )
+    from iggt_official_tpu_torch.ops.knn import brute_knn, knn_smooth_features
     from iggt_official_tpu_torch.ops.nn1 import nn1
 
     S, H, W = PP_SCENE
@@ -592,9 +930,32 @@ def run_postproc() -> bool:
         + f"; noise share before reassignment {trace.get('noise share', 0.0):.4f}; clusters "
         f"{clusters} (want {PP_SCENE_CLUSTERS}); nn1 launches {nn1.launches}; peak "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB {'ok' if ok else 'FAIL'}")
-    del pts, fts, smoothed
+
+    flat = smoothed.reshape(-1, smoothed.shape[-1])
+    sample_idx, _, _ = _subsample(flat.shape[0], BUDGET, 100, 500)
+    sub = flat[torch.as_tensor(sample_idx, device=flat.device)].contiguous()
+    torch.cuda.synchronize()
+    nn1_mod.bucket_minima_kernel.launches = 0
+    t0 = time.perf_counter()
+    dist, idx = nn1_mod.bucket_topk(sub, sub, BT_K)
+    torch.cuda.synchronize()
+    bt_s = time.perf_counter() - t0
+    launches_out["bucket_topk"] = nn1_mod.bucket_minima_kernel.launches
+    t0 = time.perf_counter()
+    ex_d, ex_i = brute_knn(sub, sub, BT_K)
+    torch.cuda.synchronize()
+    ex_s = time.perf_counter() - t0
+    probe = torch.arange(0, sub.shape[0], 97, device=sub.device)
+    hits = (idx[probe][:, :, None] == ex_i[probe][:, None, :]).any(-1).float().mean().item()
+    good = (launches_out["bucket_topk"] == 1 and bool((dist[:, 0] == 0).all())
+            and bool(torch.isfinite(dist).all()) and hits > 0.9)
+    log(f"[postproc] bucket top-k path (core-kNN candidate) on the scene's {sub.shape[0]}-point "
+        f"subsample, k={BT_K}: {1e3 * bt_s:.2f} ms against the exact core kNN's "
+        f"{1e3 * ex_s:.2f} ms; recall@{BT_K} {hits:.4f} on {probe.numel()} probed queries; "
+        f"bucket_topk launches {launches_out['bucket_topk']} {'ok' if good else 'FAIL'}")
+    del pts, fts, smoothed, flat, sub, dist, idx, ex_d, ex_i
     torch.cuda.empty_cache()
-    return ok
+    return ok and good
 
 
 # ---------------------------------------------------------------------------
@@ -605,18 +966,45 @@ REQUESTS = (("3 views 504x336", 3, (504, 336)),
             ("8 views 518x518", 8, (518, 518)))
 
 
-def write_scene(root: str, n_views: int, seed: int) -> str:
-    """Synthetic seeded 640x480 views: smooth random colour fields plus noise."""
+def write_scene(root: str, n_views: int, seed: int, gt: bool = False,
+                size=(640, 480)) -> str:
+    """Synthetic seeded views (``size`` = (W, H)): smooth random colour fields
+    plus noise; with ``gt`` also ground truth as the demo reads it, per view
+    a 16-bit depth PNG in millimetres (a smooth surface at 1-5 m) under
+    ``depth/`` and an npz with a camera-to-world ``pose`` (a random rotation
+    and translation) and pinhole ``intrinsics`` under ``cam/``."""
     from PIL import Image
 
+    W, H = size
     rng = np.random.default_rng(seed)
     scene = os.path.join(root, f"scene_{n_views}_{seed}")
     os.makedirs(os.path.join(scene, "images"))
+    if gt:
+        os.makedirs(os.path.join(scene, "depth"))
+        os.makedirs(os.path.join(scene, "cam"))
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
     for i in range(n_views):
         coarse = rng.uniform(0, 255, (6, 8, 3)).astype(np.uint8)
-        img = np.asarray(Image.fromarray(coarse).resize((640, 480), Image.BICUBIC), np.float32)
+        img = np.asarray(Image.fromarray(coarse).resize((W, H), Image.BICUBIC), np.float32)
         img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
         Image.fromarray(img).save(os.path.join(scene, "images", f"{i:04d}.png"))
+        if not gt:
+            continue
+        a, b = rng.uniform(0, 2 * np.pi, 2)
+        depth_m = (3.0 + np.sin(yy / H * 3 + a) + np.cos(xx / W * 4 + b)).astype(np.float32)
+        Image.fromarray(np.round(depth_m * 1000).astype(np.uint16)).save(
+            os.path.join(scene, "depth", f"{i:04d}.png"))
+        q = rng.normal(0, 1, 4)
+        w, x, y, z = q / np.linalg.norm(q)
+        pose = np.eye(4)
+        pose[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]]
+        pose[:3, 3] = rng.normal(0, 1, 3)
+        focal = 0.8 * W
+        K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]])
+        np.savez(os.path.join(scene, "cam", f"{i:04d}.npz"), pose=pose.astype(np.float32),
+                 intrinsics=K.astype(np.float32))
     return scene
 
 
@@ -647,13 +1035,33 @@ def check_outputs(preds, S, H, W):
     return problems, int((~fov_ok).sum())
 
 
+def export_problems(out_dir: str, S: int, with_gt: bool):
+    """The demo's file set (minus sky masking): npz, masks/, pca/, depth_vis/
+    (per view 4 maps, plain and scale bar; comparison, GIF, 2 npy), 3 GLBs,
+    and the evaluation report exactly when the scene has ground truth."""
+    problems = []
+    counts = {d: len(os.listdir(os.path.join(out_dir, d))) for d in ("masks", "pca", "depth_vis")}
+    want = {"masks": S, "pca": S, "depth_vis": 6 * S + 4}
+    if counts != want:
+        problems.append(f"files {counts}, want {want}")
+    top = set(os.listdir(out_dir))
+    need = {"predictions.npz", "scene_rgb.glb", "scene_mask.glb", "scene_pca.glb"}
+    if not need <= top:
+        problems.append(f"missing {sorted(need - top)}")
+    if ("evaluation_report.json" in top) != with_gt:
+        problems.append(f"evaluation_report.json {'missing' if with_gt else 'unexpected'}")
+    return problems
+
+
 BUCKETS = (("flash attention (ours)", ("flash_kernel",)),
+           ("fused LayerNorm (ours)", ("ln_kernel",)),
            ("convolution", ("fprop", "dgrad", "conv", "cudnn", "winograd", "fft")),
            ("matmul", ("gemm", "cutlass", "xmma", "matmul")),
            ("LayerNorm / softmax / reductions", ("reduce", "norm", "softmax")))
 
 
-def profile_forward(model, x, fwd_s: float, top: int = 10) -> None:
+def profile_forward(label, model, x, fwd_s: float, fused_ln: bool = False,
+                    top: int = 10) -> None:
     """Device time by kernel over one forward (torch.profiler), grouped into
     buckets by kernel name, and the device's busy share of the unprofiled
     forward's wall time."""
@@ -662,7 +1070,7 @@ def profile_forward(model, x, fwd_s: float, top: int = 10) -> None:
 
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model(x)
+        model(x, fused_ln=fused_ln)
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -682,7 +1090,7 @@ def profile_forward(model, x, fwd_s: float, top: int = 10) -> None:
         name = next((n for n, pats in BUCKETS if any(p in low for p in pats)),
                     "other (elementwise, copies)")
         buckets[name] += ms
-    log(f"[profile] 8 views 518x518 forward: device time {total:.1f} ms over "
+    log(f"[profile] {label} forward: device time {total:.1f} ms over "
         f"{sum(c for _, c, _ in rows)} kernel launches; busy {100 * total / 1e3 / fwd_s:.1f}% "
         f"of the unprofiled forward's {fwd_s * 1e3:.1f} ms wall")
     for name, ms in sorted(buckets.items(), key=lambda kv: -kv[1]):
@@ -702,76 +1110,175 @@ def wall_s(fn) -> float:
     return time.perf_counter() - t
 
 
+def zero_counts():
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+    from iggt_official_tpu_torch.ops.fused_ln import fused_layernorm
+    from iggt_official_tpu_torch.ops.nn1 import nn1
+
+    fa.flash_attention.launches = fa.flash_attention_fused.launches = 0
+    nn1.launches = fused_layernorm.launches = 0
+
+
+def read_counts():
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+    from iggt_official_tpu_torch.ops.fused_ln import fused_layernorm
+    from iggt_official_tpu_torch.ops.nn1 import nn1
+
+    return {"flash_attention_fused": fa.flash_attention_fused.launches,
+            "flash_attention": fa.flash_attention.launches, "nn1": nn1.launches,
+            "fused_ln": fused_layernorm.launches}
+
+
+def timed_request(proc, scene, out_dir):
+    """Warm-up, then three requests: the first with the launch counts set to 0
+    just before and read just after, and its peak memory; returns (results
+    of the first, counts, peak GiB, median wall s)."""
+    import torch
+
+    proc.process_scene(scene, out_dir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t = time.perf_counter()
+    results = proc.process_scene(scene, out_dir)
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t]
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    walls += [wall_s(lambda: proc.process_scene(scene, out_dir)) for _ in range(2)]
+    return results, counts, peak, float(np.median(walls))
+
+
 def run_requests(launches_out: dict) -> bool:
+    """The three requests through `IGGTProcessor.process_scene` (the 3-view
+    scene with seeded ground truth), then the two fast modes at 8 views
+    518x518 on the same weights and images: `RuntimeConfig(fused_ln=True)` and
+    `head_dtype="bfloat16"`, with the bare forwards of all three timed in
+    turns."""
     import torch
 
     from iggt_official_tpu_torch.app.demo import IGGTProcessor
     from iggt_official_tpu_torch.config import RuntimeConfig
-    from iggt_official_tpu_torch.ops import flash_attention as fa
     from iggt_official_tpu_torch.ops.cluster import BUDGET
-    from iggt_official_tpu_torch.ops.nn1 import nn1
 
     t0 = time.time()
     proc = IGGTProcessor(device="cuda", seed=SEED)
     n_params = sum(p.numel() for p in proc.model.parameters())
     log(f"[requests] full-width ModelConfig(): {n_params / 1e9:.3f} B parameters, "
-        f"trunk {proc.cfg.trunk_dtype}, heads float32, built in "
+        f"trunk {proc.cfg.trunk_dtype}, heads {proc.cfg.head_dtype}, built in "
         f"{time.time() - t0:.1f} s; clustering {proc.runtime.clustering}")
-    want = (proc.cfg.aggregator.depth,
-            proc.cfg.aggregator.vit.depth + proc.cfg.aggregator.depth + 1)
+    agg = proc.cfg.aggregator
+    want = (agg.depth, agg.vit.depth + agg.depth + 1)
+    want_ln = 2 * (agg.vit.depth + 2 * agg.depth)
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         for i, (label, S, (W, H)) in enumerate(REQUESTS):
-            scene = write_scene(tmp, S, SEED + i)
+            with_gt = i == 0
+            scene = write_scene(tmp, S, SEED + i, gt=with_gt)
             out_dir = os.path.join(tmp, f"out_{i}")
             proc.runtime = RuntimeConfig(image_size=(W, H))
-            proc.process_scene(scene, out_dir)                 # warm-up
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            fa.flash_attention.launches = fa.flash_attention_fused.launches = 0
-            nn1.launches = 0
-            t = time.perf_counter()
-            preds = proc.process_scene(scene, out_dir)
-            torch.cuda.synchronize()
-            walls = [time.perf_counter() - t]
-            counts = (fa.flash_attention_fused.launches, fa.flash_attention.launches,
-                      nn1.launches)
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            walls += [wall_s(lambda: proc.process_scene(scene, out_dir)) for _ in range(2)]
-            wall = float(np.median(walls))
+            results, counts, peak, wall = timed_request(proc, scene, out_dir)
+            preds = results["predictions"]
             x = torch.from_numpy(preds["images"][None]).cuda()
             with torch.inference_mode():
                 fwd = float(np.median([wall_s(lambda: proc.model(x)) for _ in range(3)]))
             raw = proc._run_inference(scene)
             post = float(np.median([wall_s(lambda: proc._post_process(dict(raw)))
                                     for _ in range(3)]))
-            stages = {}
-            proc._post_process(dict(raw), trace=stages)
             del raw
+            stages = {}
+            proc.process_scene(scene, out_dir, trace=stages)
             problems, zero_fov = check_outputs(preds, S, H, W)
-            if counts[:2] != want:
-                problems.append(f"launches fused={counts[0]} flash={counts[1]}, "
-                                f"want {want[0]} and {want[1]}")
-            if S * H * W > BUDGET and counts[2] < 1:
+            if (counts["flash_attention_fused"], counts["flash_attention"]) != want:
+                problems.append(f"launches {counts}, want fused {want[0]} and flash {want[1]}")
+            if counts["fused_ln"]:
+                problems.append("fused_ln launched with RuntimeConfig(fused_ln=False)")
+            if S * H * W > BUDGET and counts["nn1"] < 1:
                 problems.append("no nn1 launch although M exceeds the subsample budget")
-            pngs = [len(os.listdir(os.path.join(out_dir, d))) for d in ("masks", "pca")]
-            if pngs != [S, S]:
-                problems.append(f"mask / pca PNGs {pngs}, want {S} each")
+            problems += export_problems(out_dir, S, with_gt)
+            if with_gt and "evaluation" not in results:
+                problems.append("no evaluation although the scene has ground truth")
             ok &= not problems
-            (launches_out["flash_attention_fused"], launches_out["flash_attention"],
-             launches_out["nn1"]) = counts
+            launches_out.update({k: v for k, v in counts.items() if k != "fused_ln"})
             masks = preds["instance_masks"]
-            log(f"[requests] {label}: request {wall:.3f} s ({S / wall:.2f} views/s), "
-                f"forward {fwd:.3f} s ({S / fwd:.2f} views/s), post-processing "
-                f"{post:.3f} s, peak {peak:.2f} GiB allocated; launches "
-                f"fused={counts[0]} flash={counts[1]} nn1={counts[2]}; clusters "
+            log(f"[requests] {label}{' (with ground truth)' if with_gt else ''}: request "
+                f"{wall:.3f} s ({S / wall:.2f} views/s), forward {fwd:.3f} s "
+                f"({S / fwd:.2f} views/s), post-processing {post:.3f} s, peak {peak:.2f} GiB "
+                f"allocated; launches fused={counts['flash_attention_fused']} "
+                f"flash={counts['flash_attention']} nn1={counts['nn1']}; clusters "
                 f"{len(np.unique(masks[masks >= 0]))}, noise pixels {(masks < 0).mean():.4f}; "
-                f"outputs {'finite, shapes and ranges ok' if not problems else problems}"
+                f"outputs and files {'ok' if not problems else problems}"
                 f"{f' (views with zero fov: {zero_fov})' if zero_fov else ''}")
-            log(f"[requests]   post-processing stages (one traced run): "
+            log(f"[requests]   stages (one traced request): "
                 + ", ".join(f"{k} {v:.3f}" for k, v in stages.items() if k != "noise share")
                 + f"; noise share before reassignment {stages.get('noise share', 0.0):.4f}")
-        profile_forward(proc.model, x, fwd)
+            if with_gt:
+                summary = results["evaluation"]["summary"]
+                log(f"[requests]   evaluation against the seeded ground truth (random "
+                    f"weights): {json.dumps(summary)}")
+        # the fast modes on the last request's scene, same weights and images;
+        # one model on the card during each request, so peaks compare
+        base_preds, base_fwd, main = preds, fwd, label
+        bf16 = None
+        modes = (("fused_ln=True", RuntimeConfig(image_size=(W, H), fused_ln=True)),
+                 ('head_dtype="bfloat16"', RuntimeConfig(image_size=(W, H))))
+        fwds = {"baseline": [], "fused_ln=True": [], 'head_dtype="bfloat16"': []}
+        for label, runtime in modes:
+            p = proc
+            if label.startswith("head_dtype"):
+                proc.model.to("cpu")
+                torch.cuda.empty_cache()
+                bf16 = p = IGGTProcessor(
+                    model_cfg=dataclasses.replace(proc.cfg, head_dtype="bfloat16"),
+                    device="cuda", seed=SEED)
+                p.model.load_state_dict(proc.model.state_dict())
+            p.runtime = runtime
+            out_dir = os.path.join(tmp, f"out_{label}")
+            results, counts, peak, wall = timed_request(p, scene, out_dir)
+            preds = results["predictions"]
+            problems, zero_fov = check_outputs(preds, S, H, W)
+            ln_want = want_ln if runtime.fused_ln else 0
+            if ((counts["flash_attention_fused"], counts["flash_attention"]) != want
+                    or counts["fused_ln"] != ln_want or counts["nn1"] < 1):
+                problems.append(f"launches {counts}, want fused {want[0]}, flash {want[1]}, "
+                                f"fused_ln {ln_want}, nn1 >= 1")
+            problems += export_problems(out_dir, S, False)
+            ok &= not problems
+            if runtime.fused_ln:
+                launches_out["fused_ln"] = counts["fused_ln"]
+            diffs = {k: (rel_err(torch.from_numpy(base_preds[k]), torch.from_numpy(preds[k])),
+                         median_rel(torch.from_numpy(base_preds[k]), torch.from_numpy(preds[k])))
+                     for k in ("depth", "world_points", "part_feat")}
+            log(f"[requests] {main}, {label}: request {wall:.3f} s ({S / wall:.2f} "
+                f"views/s), peak {peak:.2f} GiB allocated; launches "
+                f"fused={counts['flash_attention_fused']} flash={counts['flash_attention']} "
+                f"fused_ln={counts['fused_ln']} nn1={counts['nn1']}; against the baseline "
+                f"request (max / median rel): "
+                + ", ".join(f"{k} {a:.3e} / {m:.3e}" for k, (a, m) in diffs.items())
+                + f"; outputs and files {'ok' if not problems else problems}")
+        # bare forwards of the three, in turns (baseline, fused, bf16 heads, then reversed)
+        proc.model.to("cuda")
+        with torch.inference_mode():
+            runs = (("baseline", lambda: proc.model(x)),
+                    ("fused_ln=True", lambda: proc.model(x, fused_ln=True)),
+                    ('head_dtype="bfloat16"', lambda: bf16.model(x)))
+            for fn in runs:
+                fn[1]()
+            for r in range(4):
+                for name, fn in (runs if r % 2 == 0 else runs[::-1]):
+                    fwds[name].append(wall_s(fn))
+        med = {k: float(np.median(v)) for k, v in fwds.items()}
+        log(f"[requests] {main} bare forward A/B (median of 4, in turns; the "
+            f"baseline request phase read {base_fwd:.3f} s): "
+            + ", ".join(f"{k} {v:.4f} s ({S / v:.2f} views/s, "
+                        f"{100 * (v / med['baseline'] - 1):+.1f}%)" for k, v in med.items())
+            + "; all runs " + json.dumps({k: [round(t, 4) for t in v] for k, v in fwds.items()}))
+        profile_forward(f"{main} baseline", proc.model, x, med["baseline"])
+        profile_forward(f"{main} fused_ln=True", proc.model, x, med["fused_ln=True"],
+                        fused_ln=True)
+        profile_forward(f'{main} head_dtype="bfloat16"', bf16.model, x,
+                        med['head_dtype="bfloat16"'])
+        del bf16
     return ok
 
 
@@ -828,14 +1335,14 @@ def main(phases=("device", "build", "kernels", "agreement", "postproc", "request
     results = []
     ok = True
     if "kernels" in phases:
-        results = check_kernels() + check_nn1()
+        results = check_kernels() + check_nn1() + check_fused_ln() + check_bucket_topk()
         ok &= all(r["ok"] for r in results)
     if "agreement" in phases:
         ok &= check_agreement()
         ok &= check_postproc_agreement()
     launches = {}
     if "postproc" in phases:
-        ok &= run_postproc()
+        ok &= run_postproc(launches)
     if "requests" in phases:
         ok &= run_requests(launches)
 

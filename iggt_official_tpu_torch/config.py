@@ -3,10 +3,9 @@
 The model dataclasses keep the JAX package's field names and defaults for
 everything the port builds, so `ModelConfig().scaled(...)` describes the
 same network in both packages.  Fields that select code not ported yet
-(VGGT, the track head, the bf16 head mode, the tracker DPT variant, the
-upstream-HAT window partition, token merging, the fused-LayerNorm kernel,
-the TPU mesh, the GLB export's confidence threshold and sky masking) are
-left out until that code lands.
+(VGGT, the track head, the tracker DPT variant, the upstream-HAT window
+partition, token merging, the TPU mesh and sky masking) are left out until
+that code lands.
 """
 
 from __future__ import annotations
@@ -126,8 +125,12 @@ class ModelConfig:
     intermediate_layer_idx: Tuple[int, ...] = (4, 11, 17, 23)
     camera: CameraHeadConfig = dataclasses.field(default_factory=CameraHeadConfig)
     part: PartHeadConfig = dataclasses.field(default_factory=PartHeadConfig)
-    # the trunk runs in trunk_dtype (bf16); heads, LayerNorms and RoPE in fp32
+    # the trunk runs in trunk_dtype (bf16), LayerNorms and RoPE in fp32; the
+    # depth / point / part decode heads compute in head_dtype ("float32" is
+    # the reference's autocast-disabled island, "bfloat16" the fast mode);
+    # the camera head and the heads' LayerNorms and activations stay fp32
     trunk_dtype: str = "bfloat16"
+    head_dtype: str = "float32"
     frames_chunk_size: int = 8
 
     @property
@@ -212,4 +215,10 @@ class RuntimeConfig:
     """Execution knobs for the inference app."""
 
     image_size: Tuple[int, int] = (504, 336)  # (W, H)
+    # GLB export: drop points below this percentile of confidence
+    conf_threshold: float = 0.3
     clustering: ClusteringConfig = dataclasses.field(default_factory=ClusteringConfig)
+    # every trunk pre-norm through the hand-written LayerNorm kernel
+    # (`ops/fused_ln.py`, two-pass variance) instead of the fast-variance
+    # `LayerNorm`; off by default, as in the JAX package
+    fused_ln: bool = False

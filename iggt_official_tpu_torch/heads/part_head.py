@@ -1,11 +1,13 @@
-"""Instance-grounded part-feature head, channels-last, fp32.
+"""Instance-grounded part-feature head, channels-last.
 
 Counterpart of `iggt_official_tpu/heads/part_head.py`: RefineNet fusion of
 the SamProjector pyramid with the point head's fusion pyramid injected by
 cross-attention after refinenet4 (level 1x, through the flash kernel), an
 overlapping-window cross-attention after refinenet2 (level 4x), refinenet1,
 output_conv1, a window self-attention, a bilinear upsample to full
-resolution and the output convs.  Returns raw 8-channel features.
+resolution and the output convs.  Computes in ``dtype`` (fp32, or bf16 as the
+fast mode, where the cross-attention takes the bf16 flash kernel); returns
+raw 8-channel fp32 features.
 
 ``cross_attention_1`` keeps its parameters (they are in the checkpoint) but
 is not computed: the reference computes it and discards the result.
@@ -28,15 +30,18 @@ from iggt_official_tpu_torch.ops.interpolate import bilinear_resize_align_corner
 class PartHead(nn.Module):
     """Fuse projector + point features into per-pixel instance embeddings."""
 
-    def __init__(self, cfg: PartHeadConfig):
+    def __init__(self, cfg: PartHeadConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         f = cfg.features
-        self.scratch = make_fusion_scratch(cfg.out_channels, f, cfg.output_dim)
-        self.cross_attention_1 = CrossAttention(f, cfg.ca_num_heads)
-        self.cross_attention_2 = CrossAttention(f, cfg.ca_num_heads)
-        self.window_self_atten = SwinSA(f // 2, f // 2, cfg.swin_num_heads, cfg.window_size)
-        self.window_cross_attention = SwinCA(f, f, cfg.swin_num_heads, cfg.window_size)
+        self.scratch = make_fusion_scratch(cfg.out_channels, f, cfg.output_dim, dtype)
+        self.cross_attention_1 = CrossAttention(f, cfg.ca_num_heads, dtype=dtype)
+        self.cross_attention_2 = CrossAttention(f, cfg.ca_num_heads, dtype=dtype)
+        self.window_self_atten = SwinSA(f // 2, f // 2, cfg.swin_num_heads, cfg.window_size,
+                                        dtype=dtype)
+        self.window_cross_attention = SwinCA(f, f, cfg.swin_num_heads, cfg.window_size,
+                                             dtype=dtype)
 
     def forward(self, projector_features: Sequence[torch.Tensor],
                 point_features: Sequence[torch.Tensor], images_hw: Tuple[int, int],
@@ -49,7 +54,7 @@ class PartHead(nn.Module):
         p = self.cfg.patch_size
         sc = self.scratch
         rn = [getattr(sc, f"layer{i + 1}_rn")(projector_features[i]) for i in range(4)]
-        pt2, _pt3, pt4 = point_features
+        pt2, _pt3, pt4 = (t.to(self.dtype) for t in point_features)
 
         def flat(x):
             return x.reshape(x.shape[0], -1, x.shape[-1])
@@ -63,4 +68,4 @@ class PartHead(nn.Module):
         out = self.window_self_atten(sc.output_conv1(out))
         out = bilinear_resize_align_corners(out, ((H // p) * p, (W // p) * p))
         out = sc.output_conv2(out)
-        return out.reshape(B, S, *out.shape[1:])
+        return out.float().reshape(B, S, *out.shape[1:])

@@ -1,4 +1,4 @@
-"""HAT-style window attention used by the part head, channels-last, fp32.
+"""HAT-style window attention used by the part head, channels-last.
 
 Counterpart of `iggt_official_tpu/heads/window_attn.py`:
 - ``SwinSA``: window self-attention (HAB: plain bias-free windowed MHA +
@@ -13,7 +13,9 @@ channel-scrambled q partition (the JAX package's default
 unshifted (the shipped config uses shift 0); sizes that are not multiples of
 the window are edge-padded and cropped back.  Module names follow the
 reference checkpoint (`patch_embed.norm`, `atten_block.attn.qkv`,
-`conv_block.cab.<i>`, `conv_before_upsample.0`).
+`conv_block.cab.<i>`, `conv_before_upsample.0`).  Everything computes in
+``dtype`` (fp32, or bf16 as the fast mode) except the LayerNorms and the
+softmax, which run in fp32 and cast back.
 """
 
 from __future__ import annotations
@@ -111,12 +113,13 @@ class _Pool(nn.Module):
 class ChannelAttention(nn.Module):
     """Squeeze-excite channel gate."""
 
-    def __init__(self, features: int, squeeze_factor: int = 16):
+    def __init__(self, features: int, squeeze_factor: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = features // squeeze_factor
         self.attention = nn.Sequential(
-            _Pool(), Conv2d(features, hidden, 1), nn.ReLU(),
-            Conv2d(hidden, features, 1), nn.Sigmoid())
+            _Pool(), Conv2d(features, hidden, 1, dtype=dtype), nn.ReLU(),
+            Conv2d(hidden, features, 1, dtype=dtype), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.attention(x)
@@ -125,10 +128,10 @@ class ChannelAttention(nn.Module):
 class _AttnProjections(nn.Module):
     """Holds the window self-attention's qkv / proj under the reference names."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.qkv = Linear(dim, 3 * dim)
-        self.proj = Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim, dtype=dtype)
+        self.proj = Linear(dim, dim, dtype=dtype)
 
 
 class HAB(nn.Module):
@@ -136,25 +139,27 @@ class HAB(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 8,
                  conv_scale: float = 0.01, mlp_ratio: float = 4.0,
-                 compress_ratio: int = 3, squeeze_factor: int = 30):
+                 compress_ratio: int = 3, squeeze_factor: int = 30,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
         self.conv_scale = conv_scale
+        self.dtype = dtype
         self.norm1 = LayerNorm(dim)
-        self.attn = _AttnProjections(dim)
+        self.attn = _AttnProjections(dim, dtype)
         self.conv_block = nn.Module()
         self.conv_block.cab = nn.Sequential(
-            Conv2d(dim, dim // compress_ratio, 3, padding=1),
+            Conv2d(dim, dim // compress_ratio, 3, padding=1, dtype=dtype),
             nn.GELU(),
-            Conv2d(dim // compress_ratio, dim, 3, padding=1),
-            ChannelAttention(dim, squeeze_factor))
+            Conv2d(dim // compress_ratio, dim, 3, padding=1, dtype=dtype),
+            ChannelAttention(dim, squeeze_factor, dtype))
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
-        xn = self.norm1(x)
+        xn = self.norm1(x).to(self.dtype)
         conv_x = self.conv_block.cab(xn)
         xw, (H0, W0) = _pad_to_multiple(xn, self.window_size)
         Hp, Wp = xw.shape[1], xw.shape[2]
@@ -173,7 +178,8 @@ class OCAB(nn.Module):
     """Overlapping-window cross-attention block; q, k and v share ``norm1``."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 8,
-                 overlap_ratio: float = 0.5, mlp_ratio: float = 2.0):
+                 overlap_ratio: float = 0.5, mlp_ratio: float = 2.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         ws = window_size
         ows = int(ws * overlap_ratio) + ws
@@ -185,12 +191,12 @@ class OCAB(nn.Module):
         self.register_buffer("rpi", torch.tensor(rpi_window_oca(ws, ows)),
                              persistent=False)
         self.norm1 = LayerNorm(dim)
-        self.q = Linear(dim, dim)
-        self.k = Linear(dim, dim)
-        self.v = Linear(dim, dim)
-        self.proj = Linear(dim, dim)
+        self.q = Linear(dim, dim, dtype=dtype)
+        self.k = Linear(dim, dim, dtype=dtype)
+        self.v = Linear(dim, dim, dtype=dtype)
+        self.proj = Linear(dim, dim, dtype=dtype)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
     def forward(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
@@ -228,10 +234,11 @@ class _PatchNorm(nn.Module):
         return self.norm(x)
 
 
-def _conv_tail(embed_dim: int, out_chans: int):
-    after = Conv2d(embed_dim, embed_dim, 3, padding=1)
-    before = nn.Sequential(Conv2d(embed_dim, 64, 3, padding=1), nn.LeakyReLU(0.01))
-    last = Conv2d(64, out_chans, 3, padding=1)
+def _conv_tail(embed_dim: int, out_chans: int, dtype: torch.dtype):
+    after = Conv2d(embed_dim, embed_dim, 3, padding=1, dtype=dtype)
+    before = nn.Sequential(Conv2d(embed_dim, 64, 3, padding=1, dtype=dtype),
+                           nn.LeakyReLU(0.01))
+    last = Conv2d(64, out_chans, 3, padding=1, dtype=dtype)
     return after, before, last
 
 
@@ -239,16 +246,19 @@ class SwinSA(nn.Module):
     """Window self-attention body + conv tail: (B, H, W, embed_dim) -> out_chans."""
 
     def __init__(self, embed_dim: int, out_chans: int, num_heads: int = 4,
-                 window_size: int = 8):
+                 window_size: int = 8, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.patch_embed = _PatchNorm(embed_dim)
-        self.atten_block = HAB(embed_dim, num_heads, window_size)
+        self.atten_block = HAB(embed_dim, num_heads, window_size, dtype=dtype)
         self.norm = LayerNorm(embed_dim)
         self.conv_after_body, self.conv_before_upsample, self.conv_last = _conv_tail(
-            embed_dim, out_chans)
+            embed_dim, out_chans, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feats = self.norm(self.atten_block(self.patch_embed(x)))
+        dt = self.dtype
+        x = x.to(dt)
+        feats = self.norm(self.atten_block(self.patch_embed(x).to(dt))).to(dt)
         x = self.conv_after_body(feats) + x
         return self.conv_last(self.conv_before_upsample(x))
 
@@ -259,16 +269,23 @@ class SwinCA(nn.Module):
 
     def __init__(self, embed_dim: int, out_chans: int, num_heads: int = 4,
                  window_size: int = 8, overlap_ratio: float = 0.5,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.patch_embed = _PatchNorm(embed_dim)
-        self.atten_block = OCAB(embed_dim, num_heads, window_size, overlap_ratio, mlp_ratio)
+        self.atten_block = OCAB(embed_dim, num_heads, window_size, overlap_ratio, mlp_ratio,
+                                dtype=dtype)
         self.norm = LayerNorm(embed_dim)
         self.conv_after_body, self.conv_before_upsample, self.conv_last = _conv_tail(
-            embed_dim, out_chans)
+            embed_dim, out_chans, dtype)
 
     def forward(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        pn = self.patch_embed
-        feats = self.norm(self.atten_block(pn(x), pn(k), pn(v)))
+        dt = self.dtype
+        x = x.to(dt)
+
+        def pn(t):
+            return self.patch_embed(t).to(dt)
+
+        feats = self.norm(self.atten_block(pn(x), pn(k), pn(v))).to(dt)
         x = self.conv_after_body(feats) + x
         return self.conv_last(self.conv_before_upsample(x))

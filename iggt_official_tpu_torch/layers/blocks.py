@@ -3,7 +3,9 @@
 Parameters are stored in fp32 and cast to the module's compute dtype at use,
 as flax does with ``dtype=bf16``.  LayerNorms run in fp32 with flax's fast
 variance E[x^2] - mu^2 (clamped at 0), which `torch.nn.LayerNorm` does not
-compute.  Q/K/V keep the (B, N, heads, head_dim) layout of the JAX package.
+compute; with ``fused_ln=True`` a block's pre-norms go through the fused
+LayerNorm kernel (`ops/fused_ln.py`, two-pass variance) instead, on the same
+parameters.  Q/K/V keep the (B, N, heads, head_dim) layout of the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from iggt_official_tpu_torch.layers.rope import Rope2DTables, pack_rope_tables
+from iggt_official_tpu_torch.ops.fused_ln import fused_layernorm
 
 
 class Linear(nn.Linear):
@@ -216,6 +219,12 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), bias=ffn_bias, dtype=dtype)
         self.ls2 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
 
-    def forward(self, x: torch.Tensor, rope: Optional[Rope2DTables] = None) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x).to(self.dtype), rope=rope))
-        return x + self.ls2(self.mlp(self.norm2(x).to(self.dtype)))
+    def _pre_norm(self, norm: LayerNorm, x: torch.Tensor, fused_ln: bool) -> torch.Tensor:
+        if fused_ln:
+            return fused_layernorm(x, norm.weight, norm.bias, norm.eps, out_dtype=self.dtype)
+        return norm(x).to(self.dtype)
+
+    def forward(self, x: torch.Tensor, rope: Optional[Rope2DTables] = None,
+                fused_ln: bool = False) -> torch.Tensor:
+        x = x + self.ls1(self.attn(self._pre_norm(self.norm1, x, fused_ln), rope=rope))
+        return x + self.ls2(self.mlp(self._pre_norm(self.norm2, x, fused_ln)))

@@ -2,7 +2,8 @@
 
 Counterpart of `iggt_official_tpu/layers/vit.py`: cls + register tokens,
 absolute pos-embed (interpolated when the patch grid differs from the
-trained one), pre-norm blocks with layerscale, final LayerNorm; returns the
+trained one), pre-norm blocks with layerscale (their pre-norms through the
+fused LayerNorm kernel with ``fused_ln=True``), final LayerNorm; returns the
 normalized patch tokens.  Images arrive NHWC.
 """
 
@@ -28,7 +29,8 @@ class ConvPatchEmbed(nn.Module):
         self.patch_size = patch_size
         self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=patch_size, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused_ln: bool = False) -> torch.Tensor:
+        """``fused_ln`` is taken for DinoViT's signature; there is no norm here."""
         B, H, W, _ = x.shape
         p = self.patch_size
         if H % p or W % p:
@@ -59,7 +61,7 @@ class DinoViT(nn.Module):
         )
         self.norm = LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, fused_ln: bool = False) -> torch.Tensor:
         cfg = self.cfg
         B, H, W, _ = images.shape
         p = cfg.patch_size
@@ -71,7 +73,7 @@ class DinoViT(nn.Module):
             regs = self.register_tokens.expand(B, -1, -1).to(x.dtype)
             x = torch.cat([x[:, :1], regs, x[:, 1:]], dim=1)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, fused_ln=fused_ln)
         x = self.norm(x)
         return x[:, 1 + cfg.num_register_tokens:].to(self.dtype)
 

@@ -8,6 +8,8 @@ and reshaped between the frame view (B*S, P) and the global view (B, S*P).
 The DINOv2 and frame blocks call ``attn_fn`` (the kernel dispatcher: the
 flash kernel, the fused kernel for the frame blocks' q/k prep); the global
 blocks call ``global_attn_fn`` (plain q/k prep, then the flash kernel).
+With ``fused_ln=True`` every block's pre-norms (DINOv2, frame, global) go
+through the fused LayerNorm kernel.
 """
 
 from __future__ import annotations
@@ -63,7 +65,8 @@ class Aggregator(nn.Module):
         self.frame_blocks = blocks(attn_fn)
         self.global_blocks = blocks(global_attn_fn)
 
-    def forward(self, images: torch.Tensor) -> Tuple[List[torch.Tensor], int]:
+    def forward(self, images: torch.Tensor,
+                fused_ln: bool = False) -> Tuple[List[torch.Tensor], int]:
         cfg = self.cfg
         B, S, H, W, C_in = images.shape
         if C_in != 3:
@@ -73,7 +76,7 @@ class Aggregator(nn.Module):
         mean = torch.tensor(_RESNET_MEAN, dtype=torch.float32, device=images.device)
         std = torch.tensor(_RESNET_STD, dtype=torch.float32, device=images.device)
         x = ((images.float() - mean) / std).reshape(B * S, H, W, 3).to(self.dtype)
-        patch_tokens = self.patch_embed(x)
+        patch_tokens = self.patch_embed(x, fused_ln=fused_ln)
 
         cam = slice_expand_and_flatten(self.camera_token, B, S).to(patch_tokens.dtype)
         reg = slice_expand_and_flatten(self.register_token, B, S).to(patch_tokens.dtype)
@@ -89,8 +92,8 @@ class Aggregator(nn.Module):
 
         outputs: List[torch.Tensor] = []
         for frame_block, global_block in zip(self.frame_blocks, self.global_blocks):
-            tokens = frame_block(tokens.reshape(B * S, P, C), rope_frame)
+            tokens = frame_block(tokens.reshape(B * S, P, C), rope_frame, fused_ln)
             frame_inter = tokens.reshape(B, S, P, C)
-            tokens = global_block(tokens.reshape(B, S * P, C), rope_global)
+            tokens = global_block(tokens.reshape(B, S * P, C), rope_global, fused_ln)
             outputs.append(torch.cat([frame_inter, tokens.reshape(B, S, P, C)], dim=-1))
         return outputs, psi

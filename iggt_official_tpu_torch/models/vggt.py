@@ -3,7 +3,11 @@
 Counterpart of `iggt_official_tpu/models/vggt.py` (`IGGT`, `build_model`):
 aggregator -> camera head, depth head, point head (which also emits its
 fusion pyramid), SamProjector + PartHead.  The trunk runs in
-``cfg.trunk_dtype`` (bf16), the heads in fp32.
+``cfg.trunk_dtype`` (bf16); the depth, point and part decode paths compute in
+``cfg.head_dtype`` (fp32 by default, bf16 as the fast mode), the camera head
+in fp32.  ``forward(images, fused_ln=True)`` runs the trunk's pre-norms
+through the fused LayerNorm kernel, as the JAX package takes the flag at
+apply time.
 Outputs are channels-last: depth (B,S,H,W,1), world_points (B,S,H,W,3),
 part_feat (B,S,H,W,8), pose_enc (B,S,9).
 
@@ -50,18 +54,20 @@ class IGGT(nn.Module):
         self.cfg = cfg
         self.aggregator = Aggregator(cfg.aggregator.with_vit(), torch_dtype(cfg.trunk_dtype))
         self.camera_head = CameraHead(cfg.camera)
-        self.point_head = DPTHead(cfg.point_head)
-        self.depth_head = DPTHead(cfg.depth_head)
+        head_dtype = torch_dtype(cfg.head_dtype)
+        self.point_head = DPTHead(cfg.point_head, head_dtype)
+        self.depth_head = DPTHead(cfg.depth_head, head_dtype)
         p = cfg.part
         self.part_adaptor = SamProjector(p.dim_in, p.patch_size, p.intermediate_layer_idx,
-                                         p.out_channels)
-        self.part_head = PartHead(p)
+                                         p.out_channels, head_dtype)
+        self.part_head = PartHead(p, head_dtype)
 
-    def forward(self, images: torch.Tensor) -> Dict[str, Union[torch.Tensor, list]]:
+    def forward(self, images: torch.Tensor,
+                fused_ln: bool = False) -> Dict[str, Union[torch.Tensor, list]]:
         """images: (B, S, H, W, 3) in [0, 1]."""
         cfg = self.cfg
         B, S, H, W, _ = images.shape
-        tokens_list, psi = self.aggregator(images)
+        tokens_list, psi = self.aggregator(images, fused_ln)
         pose_list = self.camera_head(tokens_list[-1])
         preds: Dict[str, Union[torch.Tensor, list]] = {
             "pose_enc": pose_list[-1], "pose_enc_list": pose_list}

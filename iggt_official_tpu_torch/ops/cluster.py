@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from iggt_official_tpu_torch import native
+from iggt_official_tpu_torch.utils.colormaps import jet
 
 BUDGET = 150_000  # subsample size of the default (non-exact) path
 
@@ -830,41 +831,6 @@ def cluster_features_to_masks_mv(feature_map, apply_colormap: bool = False,
     if not apply_colormap:
         return masks
     return masks, colorize_masks(masks)
-
-
-# matplotlib's `jet` segment data (`matplotlib/_cm.py::_jet_data`): per
-# channel, (x, value below x, value above x)
-_JET_DATA = {
-    "red": ((0.00, 0, 0), (0.35, 0, 0), (0.66, 1, 1), (0.89, 1, 1), (1.00, 0.5, 0.5)),
-    "green": ((0.000, 0, 0), (0.125, 0, 0), (0.375, 1, 1), (0.640, 1, 1), (0.910, 0, 0),
-              (1.000, 0, 0)),
-    "blue": ((0.00, 0.5, 0.5), (0.11, 1, 1), (0.34, 1, 1), (0.65, 0, 0), (1.00, 0, 0)),
-}
-
-
-def _segment_lut(data, n: int = 256) -> np.ndarray:
-    """A LinearSegmentedColormap channel sampled at i / (n - 1), computed as
-    matplotlib's `colors._create_lookup_table` computes it (gamma 1)."""
-    adata = np.asarray(data, np.float64)
-    x, y0, y1 = adata[:, 0] * (n - 1), adata[:, 1], adata[:, 2]
-    xind = (n - 1) * np.linspace(0, 1, n)
-    ind = np.searchsorted(x, xind)[1:-1]
-    distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
-    lut = np.concatenate([[y1[0]], distance * (y0[ind] - y1[ind - 1]) + y1[ind - 1],
-                          [y0[-1]]])
-    return np.clip(lut, 0.0, 1.0)
-
-
-JET_LUT = np.stack([_segment_lut(_JET_DATA[ch]) for ch in ("red", "green", "blue")], 1)
-
-
-def jet(t: np.ndarray) -> np.ndarray:
-    """(...,) values in [0, 1] -> (..., 3) float64 jet colours, looked up
-    as matplotlib does: index min(int(t * 256), 255)."""
-    t = np.asarray(t, np.float64) * len(JET_LUT)
-    idx = np.clip(np.where(t == len(JET_LUT), len(JET_LUT) - 1, t), 0,
-                  len(JET_LUT) - 1).astype(np.int64)
-    return JET_LUT[idx]
 
 
 def colorize_masks(masks: np.ndarray) -> np.ndarray:

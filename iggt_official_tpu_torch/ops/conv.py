@@ -33,11 +33,19 @@ class Conv2d(nn.Conv2d):
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """torch ConvTranspose2d applied to NHWC input; output size
-    (i - 1) * s + k - 2p, as in torch."""
+    """torch ConvTranspose2d applied to NHWC input, computing in ``dtype``;
+    output size (i - 1) * s + k - 2p, as in torch."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
+                 padding=0, bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=padding, bias=bias)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt), bias,
                                self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 

@@ -1,5 +1,5 @@
-"""Exact 1-nearest-neighbour search: a hand-written Hopper kernel and its
-plain version.
+"""Exact 1-nearest-neighbour search and bucket top-k: hand-written Hopper
+kernels and their plain versions.
 
 Counterpart of `iggt_official_tpu/ops/nn1_pallas.py::nn1_pallas`.  For each
 query row, the index of the nearest reference row by exact fp32 squared
@@ -11,12 +11,21 @@ noise reassignment and the full-density backfill (`ops/cluster.py`).
 and takes `nn1_plain` only for CPU tensors.  It counts its launches in
 `nn1.launches`.  Kernel and plain version round every operation the same way,
 so they return equal indices, not merely close ones.
+
+`bucket_topk` is the counterpart of `nn1_pallas.py::bucket_topk_pallas`: per
+query, the nearest reference of each bucket (reference index mod ``nb``) by
+the same exact distances, then the exact top-k over the ``nb`` bucket minima
+(approximate k-NN with exact distances).  Like its JAX counterpart it has no
+caller in the package.  CUDA tensors launch the `bucket_min` kernel of
+`csrc/nn1.cu` through `bucket_minima_kernel`, which counts every launch in
+`bucket_minima_kernel.launches`; CPU tensors take `bucket_topk_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -35,6 +44,17 @@ def _check(query: torch.Tensor, ref: torch.Tensor) -> None:
         raise ValueError("query and ref must be on one device")
 
 
+def _sq_dist_block(qb: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """(len(qb), R) fp32 squared distances, summed over the features in order
+    with every operation rounded on its own (the kernels' chain)."""
+    d = None
+    for a in range(qb.shape[1]):
+        diff = qb[:, a:a + 1] - r[:, a]
+        diff.mul_(diff)
+        d = diff if d is None else d.add_(diff)
+    return d
+
+
 def nn1_plain(query: torch.Tensor, ref: torch.Tensor, block_q: int = 4096) -> torch.Tensor:
     """Index (Q,) int64 of the nearest ``ref`` row per ``query`` row.
 
@@ -46,13 +66,7 @@ def nn1_plain(query: torch.Tensor, ref: torch.Tensor, block_q: int = 4096) -> to
     r = ref.to(torch.float32)
     out = torch.empty(q.shape[0], dtype=torch.int64, device=q.device)
     for s in range(0, q.shape[0], block_q):
-        qb = q[s:s + block_q]
-        d = None
-        for a in range(q.shape[1]):
-            diff = qb[:, a:a + 1] - r[:, a]
-            diff.mul_(diff)
-            d = diff if d is None else d.add_(diff)
-        out[s:s + block_q] = torch.argmin(d, dim=1)
+        out[s:s + block_q] = torch.argmin(_sq_dist_block(q[s:s + block_q], r), dim=1)
     return out
 
 
@@ -62,6 +76,9 @@ def _kernel():
     p, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.iggt_nn1.argtypes = [p, p, p, ll, ll, p]
     lib.iggt_nn1.restype = ctypes.c_int
+    lib.iggt_bucket_min.argtypes = [p, p, p, p, ll, ll, ctypes.c_int, p,
+                                    ctypes.POINTER(ctypes.c_int)]
+    lib.iggt_bucket_min.restype = ctypes.c_int
     lib.iggt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.iggt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -106,3 +123,96 @@ def nn1(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 nn1.launches = 0
+
+
+def bucket_minima_plain(query: torch.Tensor, ref: torch.Tensor, nb: int = 1024,
+                        block_q: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per query and bucket b < nb, the least squared distance over the
+    references b, b + nb, ... and the smallest index attaining it: (Q, nb)
+    fp32 and (Q, nb) int64.  An empty bucket holds +inf and index b.  Blocked
+    over queries, about 512 MiB of distances per block unless ``block_q``."""
+    _check(query, ref)
+    q, r = query.to(torch.float32), ref.to(torch.float32)
+    Q, R = q.shape[0], r.shape[0]
+    rows = -(-R // nb)
+    block_q = block_q or max(1, (1 << 27) // (rows * nb))
+    lane = torch.arange(nb, device=q.device)
+    bd = torch.empty((Q, nb), dtype=torch.float32, device=q.device)
+    bi = torch.empty((Q, nb), dtype=torch.int64, device=q.device)
+    for s in range(0, Q, block_q):
+        d = _sq_dist_block(q[s:s + block_q], r)
+        n = d.shape[0]
+        if rows * nb > R:
+            d = torch.cat([d, d.new_full((n, rows * nb - R), float("inf"))], dim=1)
+        m, j = d.view(n, rows, nb).min(dim=1)  # the first (smallest) row on ties
+        bd[s:s + n] = m
+        bi[s:s + n] = j * nb + lane
+    return bd, bi
+
+
+def topk_over_buckets(bd: torch.Tensor, bi: torch.Tensor,
+                      k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k least bucket minima per query, ascending, ties by bucket position
+    (a stable sort, as `lax.top_k` breaks ties): (distances (Q, k) fp32, the
+    correctly rounded sqrt of the clamped squared distances -- taken in fp64,
+    since torch's fp32 sqrt on the CPU is not always correctly rounded;
+    indices (Q, k) int64)."""
+    order = torch.sort(bd, dim=1, stable=True).indices[:, :k]
+    d2 = torch.gather(bd, 1, order).clamp(min=0.0)
+    return torch.sqrt(d2.double()).float(), torch.gather(bi, 1, order)
+
+
+def bucket_topk_plain(query: torch.Tensor, ref: torch.Tensor, k: int,
+                      nb: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`bucket_topk` computed tensor-wise (the CPU path and the kernel's
+    yardstick)."""
+    return topk_over_buckets(*bucket_minima_plain(query, ref, nb), k)
+
+
+def bucket_minima_kernel(query: torch.Tensor, ref: torch.Tensor,
+                         nb: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`bucket_minima_plain` on the card through the `bucket_min` kernel;
+    counts each kernel launch (one per 1,048,560 queries) in
+    `bucket_minima_kernel.launches`."""
+    _check(query, ref)
+    if not query.is_cuda:
+        raise ValueError("the bucket_min kernel takes CUDA tensors")
+    if query.shape[1] != KERNEL_DIM:
+        raise ValueError(f"the bucket_min kernel takes rows of {KERNEL_DIM} features, "
+                         f"got {query.shape[1]}")
+    query, ref = _aligned(query), _aligned(ref)
+    Q = query.shape[0]
+    bd = torch.empty((Q, nb), dtype=torch.float32, device=query.device)
+    bi = torch.empty((Q, nb), dtype=torch.int64, device=query.device)
+    if Q == 0:
+        return bd, bi
+    lib = _kernel()
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream(query.device).cuda_stream
+        err = lib.iggt_bucket_min(query.data_ptr(), ref.data_ptr(), bd.data_ptr(),
+                                  bi.data_ptr(), Q, ref.shape[0], nb, stream,
+                                  ctypes.byref(launched))
+    bucket_minima_kernel.launches += launched.value
+    if err != 0:
+        raise RuntimeError("bucket_min kernel failed to launch: "
+                           + lib.iggt_cuda_error_string(err).decode())
+    return bd, bi
+
+
+bucket_minima_kernel.launches = 0
+
+
+def bucket_topk(query: torch.Tensor, ref: torch.Tensor, k: int,
+                nb: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Approximate k nearest ``ref`` rows per ``query`` row through per-bucket
+    minima (bucket = reference index mod ``nb``), with exact fp32 distances:
+    (dist (Q, k) ascending, idx (Q, k) int64).  A true neighbour is missed only
+    when a closer one shares its bucket.  CUDA tensors launch the kernel; CPU
+    tensors take `bucket_topk_plain`."""
+    _check(query, ref)
+    if not 0 < k <= nb:
+        raise ValueError(f"k must be in [1, nb = {nb}], got {k}")
+    if query.device.type == "cpu":
+        return bucket_topk_plain(query, ref, k, nb)
+    return topk_over_buckets(*bucket_minima_kernel(query, ref, nb), k)

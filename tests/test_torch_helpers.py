@@ -16,6 +16,13 @@ import torch
 
 from iggt_official_tpu.utils.torch_convert import iggt_rename, torch_state_dict_to_flax
 
+# The suite runs under pytest-xdist with about one worker per core, and every
+# worker imports this module at collection: one torch intra-op thread per
+# worker keeps the workers' thread pools from oversubscribing the cores (with
+# torch's default of one thread per core, the port's tests ran up to ~100x
+# slower in the parallel run than alone).
+torch.set_num_threads(1)
+
 _DENSE_TOKENS = {"camera_token", "register_token", "cls_token", "register_tokens",
                  "empty_pose_tokens", "relative_position_bias_table"}
 

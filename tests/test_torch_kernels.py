@@ -12,9 +12,12 @@ ulps of the largest output: both sides keep fp32 logits and round the output
 to bf16 once, the kernel its unnormalized probabilities and the plain version
 its normalized ones, and the errors seen at the main path's shapes are one
 ulp of max|ref|.  The limit scales with the output because attention outputs
-shrink as ~sqrt(e / N) with N keys.  nn1: equal indices (kernel and plain
-version round every subtraction, square and addition alike, and both take
-the smallest index among equal distances).
+shrink as ~sqrt(e / N) with N keys.  nn1 and bucket top-k: equal indices
+and distances (kernel and plain version round every subtraction, square and
+addition alike, and both take the smallest index among equal distances).
+fused LayerNorm: bit for bit (the plain version sums in the kernel's warp
+order and rounds every step as the kernel does).  A CUDA tensor launches the
+kernel: the tests replace the plain versions with ones that raise.
 """
 
 import pytest
@@ -120,3 +123,82 @@ def test_nn1_kernel_ties_go_to_the_smallest_index(cuda_device):
     out = nn1_mod.nn1(qry, ref)
     assert torch.equal(out, nn1_mod.nn1_plain(qry, ref))
     assert torch.equal(out[:20].cpu(), torch.arange(10, 30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("io", [("bfloat16", "bfloat16"), ("float32", "float32"),
+                                ("bfloat16", "float32"), ("float32", "bfloat16")])
+@pytest.mark.parametrize("shape", [(1001, 64), (37, 1024), (5, 2048), (3, 7, 264)])
+def test_fused_ln_kernel_matches_plain(cuda_device, monkeypatch, io, shape):
+    """Ragged row counts (partial last block of 8 rows), D from 64 to 2048 (1
+    to 8 chunks per lane), a 3-D input; bit-equal to the plain version."""
+    from iggt_official_tpu_torch.ops import fused_ln
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    D = shape[-1]
+    x = (3 * torch.randn(shape, generator=gen, device=cuda_device) + 1).to(getattr(torch, io[0]))
+    w = 1 + 0.1 * torch.randn((D,), generator=gen, device=cuda_device)
+    b = 0.1 * torch.randn((D,), generator=gen, device=cuda_device)
+    want = fused_ln.fused_layernorm_plain(x, w, b, 1e-6, getattr(torch, io[1]))
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    monkeypatch.setattr(fused_ln, "fused_layernorm_plain", no_plain)
+    n = fused_ln.fused_layernorm.launches
+    out = fused_ln.fused_layernorm(x, w, b, 1e-6, getattr(torch, io[1]))
+    torch.cuda.synchronize()
+    assert fused_ln.fused_layernorm.launches == n + 1
+    assert out.dtype == want.dtype and out.shape == want.shape
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_fused_ln_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    from iggt_official_tpu_torch.ops.fused_ln import fused_layernorm
+
+    w = torch.ones(12, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_layernorm(torch.zeros((4, 12), device=cuda_device), w, w)
+    w = torch.ones(16, device=cuda_device)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        fused_layernorm(torch.zeros((4, 16), device=cuda_device, dtype=torch.float16), w, w)
+
+
+@pytest.mark.cuda
+def test_bucket_topk_kernel_matches_plain(cuda_device, monkeypatch):
+    """Ties inside a bucket (the smaller index) and between buckets (the
+    lower bucket position), a ragged last row of references, nb = 256."""
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    ref = torch.randn((3_000, 8), generator=gen, device=cuda_device)
+    ref[2_560:2_570] = ref[:10]           # 2,560 = 10 * 256: the same buckets
+    ref[1_000:1_010] = ref[20:30]
+    qry = torch.cat([ref[:40], torch.randn((2_000, 8), generator=gen, device=cuda_device)])
+    want = nn1_mod.bucket_topk_plain(qry, ref, 32, 256)
+    monkeypatch.setattr(nn1_mod, "bucket_topk_plain", lambda *a: 1 / 0)
+    n = nn1_mod.bucket_minima_kernel.launches
+    dist, idx = nn1_mod.bucket_topk(qry, ref, 32, 256)
+    torch.cuda.synchronize()
+    assert nn1_mod.bucket_minima_kernel.launches == n + 1
+    assert torch.equal(idx, want[1]) and torch.equal(dist, want[0])
+    assert torch.equal(idx[:10, 0].cpu(), torch.arange(10))
+
+
+@pytest.mark.cuda
+def test_bucket_minima_kernel_counts_every_launch(cuda_device):
+    """Past 65,535 blocks of 16 queries the C side launches again; each
+    launch counts once, and the second launch's queries are right."""
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    ref = torch.randn((40, 8), generator=gen, device=cuda_device)
+    qry = torch.randn((65_535 * 16 + 100, 8), generator=gen, device=cuda_device)
+    n = nn1_mod.bucket_minima_kernel.launches
+    bd, bi = nn1_mod.bucket_minima_kernel(qry, ref, 8)
+    torch.cuda.synchronize()
+    assert nn1_mod.bucket_minima_kernel.launches == n + 2
+    tail = qry[-5_000:]
+    want_d, want_i = nn1_mod.bucket_minima_plain(tail, ref, 8)
+    assert torch.equal(bi[-5_000:], want_i) and torch.equal(bd[-5_000:], want_d)

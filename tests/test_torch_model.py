@@ -5,7 +5,8 @@ Tolerances (relative to each output's magnitude): fp32 trunk 1e-3 (errors
 seen are ~3e-6: fp32 throughout, summation order differs); bf16 trunk 3e-2
 (errors seen are ~7e-3: bf16 keeps 8 mantissa bits and the two frameworks
 round at different points -- JAX's CPU attention rounds its logits to bf16,
-flax rounds each dense output before adding the bias).
+flax rounds each dense output before adding the bias).  The fused-LN and
+bf16-head forwards are held to JAX in `test_torch_fused_ln.py`.
 """
 
 import ast
@@ -19,9 +20,12 @@ import pytest
 import torch
 import jax
 import jax.numpy as jnp
-from PIL import Image
 
+import chip_smoke
+from iggt_official_tpu.app.demo import IGGTProcessor as JProcessor
 from iggt_official_tpu.config import ModelConfig as JModelConfig
+from iggt_official_tpu.config import RuntimeConfig as JRuntimeConfig
+from iggt_official_tpu.eval.metrics import SceneEvaluator as JSceneEvaluator
 from iggt_official_tpu.geometry import (
     pose_encoding_to_extri_intri as jpose_decode,
     unproject_depth_map_to_point_map as junproject,
@@ -35,6 +39,7 @@ from iggt_official_tpu_torch.config import ModelConfig, RuntimeConfig
 from iggt_official_tpu_torch.models.vggt import build_model
 from iggt_official_tpu_torch.utils.convert import jax_params_to_torch_state_dict
 
+from .test_torch_export import assert_reports_equal
 from .test_torch_helpers import jit, load_numpy, perturbed_state_dict, rel_err, to_flax
 
 REPO = op.dirname(op.dirname(op.abspath(__file__)))
@@ -47,24 +52,27 @@ TOL = {"float32": 1e-3, "bfloat16": 3e-2}
 _JAX_FORWARD = {}
 
 
-def _configs(patch_embed, trunk):
+def _configs(patch_embed, trunk, head="float32"):
     kw = dict(SCALED, patch_embed=patch_embed)
-    return (dataclasses.replace(ModelConfig().scaled(**kw), trunk_dtype=trunk),
-            dataclasses.replace(JModelConfig().scaled(**kw), trunk_dtype=trunk))
+    return (dataclasses.replace(ModelConfig().scaled(**kw), trunk_dtype=trunk,
+                                head_dtype=head),
+            dataclasses.replace(JModelConfig().scaled(**kw), trunk_dtype=trunk,
+                                head_dtype=head))
 
 
-def _jax_forward(patch_embed, trunk):
-    """IGGT.apply(..., attn_fn=attention) as the JAX demo runs it, jitted once
-    per configuration in this process."""
-    key = (patch_embed, trunk)
+def _jax_forward(patch_embed, trunk, head="float32", fused_ln=False):
+    """IGGT.apply(..., attn_fn=attention[, fused_ln=True]) as the JAX demo
+    runs it, jitted once per configuration in this process."""
+    key = (patch_embed, trunk, head, fused_ln)
     if key not in _JAX_FORWARD:
-        jmodel = JIGGT(_configs(patch_embed, trunk)[1])
-        _JAX_FORWARD[key] = jit(lambda p, x: jmodel.apply(p, x, attn_fn=jattention))
+        jmodel = JIGGT(_configs(patch_embed, trunk, head)[1])
+        kw = {"fused_ln": True} if fused_ln else {}
+        _JAX_FORWARD[key] = jit(lambda p, x: jmodel.apply(p, x, attn_fn=jattention, **kw))
     return _JAX_FORWARD[key]
 
 
-def _port_model(patch_embed, trunk, seed=0):
-    model = build_model(_configs(patch_embed, trunk)[0], device="cpu", seed=seed)
+def _port_model(patch_embed, trunk, seed=0, head="float32"):
+    model = build_model(_configs(patch_embed, trunk, head)[0], device="cpu", seed=seed)
     sd = perturbed_state_dict(model, seed + 100)
     return load_numpy(model, sd), sd
 
@@ -84,28 +92,61 @@ def test_scaled_iggt_matches_jax(patch_embed, trunk):
     assert len(out["pose_enc_list"]) == 4
 
 
+def _jax_writers(runtime):
+    """The JAX demo's writers (npz, PNGs, depth_vis, GLBs) and evaluator,
+    without its model."""
+    jproc = JProcessor.__new__(JProcessor)
+    jproc.runtime = runtime
+    jproc.evaluator = JSceneEvaluator()
+    return jproc
+
+
+def _tree(root):
+    return sorted(op.relpath(op.join(d, f), root) for d, _, files in os.walk(root)
+                  for f in files)
+
+
 def test_processor_scene_matches_jax(tmp_path):
-    """IGGTProcessor(device="cpu") on a 2-view scene of seeded PNGs, weights
-    from a saved port state dict, against JAX IGGT.apply -> pose decode ->
-    unprojection on the same weights and the same loaded images."""
+    """IGGTProcessor(device="cpu") on a 2-view scene of seeded PNGs with
+    ground truth, weights from a saved port state dict, against JAX
+    IGGT.apply -> pose decode -> unprojection on the same weights and the
+    same loaded images; the files written are the JAX demo's set, and the
+    evaluation report is the JAX evaluator's on the same predictions (to
+    1e-6: the ground-truth extrinsics go through torch's and jnp's SE3
+    inverse, which may round differently in the last bit)."""
     cfg = _configs("conv", "float32")[0]
     _, sd = _port_model("conv", "float32", seed=3)
     weights = tmp_path / "weights.pt"
     torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, weights)
-    scene = tmp_path / "scene" / "images"
-    scene.mkdir(parents=True)
-    rng = np.random.default_rng(4)
-    for i in range(2):
-        Image.fromarray(rng.integers(0, 256, (60, 90, 3), dtype=np.uint8)).save(
-            scene / f"{i:03d}.png")
+    scene = chip_smoke.write_scene(str(tmp_path), 2, 4, gt=True, size=(90, 60))
 
     proc = IGGTProcessor(str(weights), model_cfg=cfg,
                          runtime=RuntimeConfig(image_size=(HW[1], HW[0])), device="cpu")
-    preds = proc.process_scene(str(tmp_path / "scene"), str(tmp_path / "out"))
-    assert op.exists(tmp_path / "out" / "predictions.npz")
+    results = proc.process_scene(scene, str(tmp_path / "out"))
+    preds = results["predictions"]
 
-    images = jload(sorted(str(p) for p in scene.iterdir()), mode="resize",
-                   resize_target_size=(HW[1], HW[0]))
+    jproc = _jax_writers(JRuntimeConfig(image_size=(HW[1], HW[0])))
+    os.makedirs(tmp_path / "jax")
+    jproc._save_predictions(preds, str(tmp_path / "jax"))  # depth_vis included
+    jproc._export_glbs(preds, str(tmp_path / "jax"))
+    jreport = jproc.evaluator.evaluate_scene(
+        JProcessor._load_gt_data(None, scene),
+        {"depth": preds["depth"][..., 0], "extrinsic": preds["extrinsic"]})
+    jproc.evaluator.save_evaluation_report(jreport, str(tmp_path / "jax" /
+                                                       "evaluation_report.json"))
+    files = _tree(tmp_path / "out")
+    assert files == _tree(tmp_path / "jax")
+    assert {"predictions.npz", "evaluation_report.json", "scene_rgb.glb", "scene_mask.glb",
+            "scene_pca.glb", "depth_vis/depth_animation.gif"} <= set(files)
+    with open(tmp_path / "out" / "evaluation_report.json") as f:
+        report = json.load(f)
+    with open(tmp_path / "jax" / "evaluation_report.json") as f:
+        assert_reports_equal(report, json.load(f), rel=1e-6)
+    assert report["summary"]["pose"]["num_poses"] == 2
+
+    images = jload(sorted(op.join(scene, "images", p)
+                          for p in os.listdir(op.join(scene, "images"))),
+                   mode="resize", resize_target_size=(HW[1], HW[0]))
     np.testing.assert_array_equal(preds["images"], images)
     out = _jax_forward("conv", "float32")(to_flax(sd), jnp.asarray(images[None]))
     extri, intri = jpose_decode(out["pose_enc"], HW)
@@ -169,8 +210,8 @@ def _python_sources():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    # nor sklearn or matplotlib, which the card machine does not have
-    banned = ("jax", "jaxlib", "flax", "iggt_official_tpu", "sklearn", "matplotlib")
+    # nor sklearn, matplotlib or cv2, which the card machine does not have
+    banned = ("jax", "jaxlib", "flax", "iggt_official_tpu", "sklearn", "matplotlib", "cv2")
     sources = list(_python_sources())
     assert len(sources) > 20
     for path in sources:

@@ -22,6 +22,7 @@ from iggt_official_tpu.ops import pca as jpca
 from iggt_official_tpu_torch.ops import cluster as tcluster
 from iggt_official_tpu_torch.ops import knn as tknn
 from iggt_official_tpu_torch.ops import pca as tpca
+from iggt_official_tpu_torch.utils import colormaps as tcolormaps
 
 
 def assert_close_up_to_flip(got, want, atol=1e-5):
@@ -66,7 +67,7 @@ def test_knn_smooth_features_matches_jax():
 
 def test_jet_lut_and_colorize_masks_match_matplotlib():
     # integer inputs index matplotlib's lookup table directly
-    np.testing.assert_array_equal(tcluster.JET_LUT, colormaps["jet"](np.arange(256))[:, :3])
+    np.testing.assert_array_equal(tcolormaps.JET_LUT, colormaps["jet"](np.arange(256))[:, :3])
     ts = np.concatenate([np.linspace(0, 1, 1001), np.arange(37) / 36])
     np.testing.assert_array_equal((tcluster.jet(ts) * 255).astype(np.uint8),
                                   (colormaps["jet"](ts)[:, :3] * 255).astype(np.uint8))
