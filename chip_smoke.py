@@ -12,10 +12,11 @@ order; any failure exits non-zero:
    build's time and the ptxas register / spill report are printed.
 3. kernels: each kernel's wrapper at the main path's shapes (all three
    requests) against its plain PyTorch version on the same inputs, and
-   planted faults shown to fail the check.  Flash attention (the part head's
-   cross-attention in fp32 and, as bf16 heads run it, in bf16): error against a
-   limit (printed with max|ref|); faults are a wrong softmax scale, a dropped
-   key tile, a wrong RoPE sign.  nn1: index mismatches, limit 0 (the kernel
+   planted faults shown to fail the check.  Flash attention (the frame, global
+   and DINOv2 blocks, the fused q/k prep at the frame and the global shape, the
+   part head's cross-attention in fp32 and, as bf16 heads run it, in bf16):
+   error against a limit (printed with max|ref|), time and share of the bound;
+   faults are a wrong softmax scale, a dropped key tile, a wrong RoPE sign.  nn1: index mismatches, limit 0 (the kernel
    rounds as the plain version does); faults are a dropped last reference
    tile, a dropped last feature, and reversed tie order.  fused_ln: at every
    request's row count (eps 1e-5 and 1e-6, bf16), fp32 rows, and the scaled
@@ -54,7 +55,9 @@ order; any failure exits non-zero:
    518x518 scene with `RuntimeConfig(fused_ln=True)` and with
    `head_dtype="bfloat16"` (same weights): the same request numbers, launch
    counts (144 fused_ln per forward), the difference from the baseline
-   request; the three bare forwards timed in turns; one forward of each
+   request; the three bare forwards timed in turns; the baseline forward with
+   the global blocks on the fused wrapper (the q/k prep kernel, the port's
+   route) and on the plain torch prep, in turns; one forward of each
    under `torch.profiler` gives device time by kernel bucket and the
    device's busy share.
 
@@ -169,6 +172,8 @@ KERNEL_CASES = (
     ("part cross-attention, 8 views 518px", "flash_attention", (8, 1369, 8, 32), "float32", False),
     ("frame block q/k prep, 8 views 518px", "flash_attention_fused", (8, 1374, 16, 64), "bfloat16",
      False),
+    ("global block q/k prep, 8 views 518px", "flash_attention_fused", (1, 10992, 16, 64),
+     "bfloat16", False),
     ("global block, 8 views 504x336", "flash_attention", (1, 6952, 16, 64), "bfloat16", False),
     ("frame/DINOv2 block, 8 views 504x336", "flash_attention", (8, 869, 16, 64), "bfloat16", False),
     ("part cross-attention, 8 views 504x336", "flash_attention", (8, 864, 8, 32), "float32", False),
@@ -188,7 +193,9 @@ KERNEL_CASES = (
     ("part cross-attention, bf16 heads, 3 views 504x336", "flash_attention", (3, 864, 8, 32),
      "bfloat16", False),
 )
-PATCH_GRID = {1374: (37, 37), 869: (24, 36)}     # tokens per view -> (h, w) patches
+# tokens per (batch) row -> (h, w) patches of a view, views in the row: the
+# frame blocks hold one view, the global block all 8 views of the request
+PATCH_GRID = {1374: (37, 37, 1), 869: (24, 36, 1), 10992: (37, 37, 8)}
 MAIN_CASE = {"flash_attention": "global block, 8 views 518px",
              "flash_attention_fused": "frame block q/k prep, 8 views 518px",
              "nn1": "backfill, 8 views 518x518",
@@ -234,8 +241,9 @@ def check_kernels():
             return None if t is None else t[:, :kept]
 
         if kernel == "flash_attention_fused":
-            h, w = PATCH_GRID[N]
-            pos = make_patch_positions(h, w, B, N - h * w, device=dev)
+            h, w, views = PATCH_GRID[N]
+            pos = make_patch_positions(h, w, B * views, N // views - h * w,
+                                       device=dev).reshape(B, N, 2)
             cos, sin = pack_rope_tables(compute_rope_2d(pos, D))
             norm = tuple(torch.randn((D,), generator=gen, device=dev) * 0.5 + c
                          for c in (1.0, 0.0, 1.0, 0.0))
@@ -300,8 +308,8 @@ def check_kernels():
         log(f"[kernels] {kernel:22s} {label:38s} {(B, N, H, D)} {dtype_name:8s} "
             f"max_abs_err={err:.3e} (limit {limit:.3e}, max|ref| {ref_max:.3e}) "
             f"{'ok' if ok else 'FAIL'} | "
-            f"ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f}")
+            f"ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; {100 * bound_ms / ms:.1f}% of "
+            f"the bound) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f}")
         log(f"[kernels]   planted faults: "
             + ", ".join(f"{name} err {e:.3e} ({e / limit:.1f}x limit)"
                         for name, e in fault_errs.items())
@@ -311,6 +319,7 @@ def check_kernels():
             key_bias=with_bias, max_abs_err=err, limit=limit, max_abs_ref=ref_max,
             fault_errs=fault_errs, ok=ok, ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bound_share=bound_ms / ms,
         ))
         del qkv, q, k, v, out, ref, faults
     torch.cuda.empty_cache()
@@ -653,7 +662,7 @@ def check_bucket_topk():
 CASE_KEYS = {
     "flash_attention": ("label", "shape", "dtype", "key_bias", "max_abs_err", "limit",
                         "max_abs_ref", "fault_errs", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms"),
+                        "bound_by", "bound_share", "library_ms"),
     "nn1": ("label", "shape", "mismatches", "compared", "fault_mismatches", "ms",
             "plain_ms", "bound_ms", "bound_by", "instruction_floor_ms", "library_ms",
             "library_queries", "library_kernel_ms"),
@@ -789,7 +798,7 @@ def check_agreement() -> bool:
         agg = cfg.aggregator
         counts = (fa.flash_attention_fused.launches, fa.flash_attention.launches,
                   fused_layernorm.launches)
-        want = (agg.depth, agg.vit.depth + agg.depth + 1,
+        want = (2 * agg.depth, agg.vit.depth + 1,
                 2 * (agg.vit.depth + 2 * agg.depth) if fused else 0)
         refs[label] = ref
         launch_text = (f"launches fused={counts[0]} flash={counts[1]} fused_ln={counts[2]} "
@@ -1129,6 +1138,63 @@ def read_counts():
             "fused_ln": fused_layernorm.launches}
 
 
+def plain_prep_global_attention(q, k, v, key_bias=None, rope_cos=None, rope_sin=None,
+                                qk_norm_params=None):
+    """The global blocks' route before the q/k prep kernel: the plain torch
+    q/k prep (about fifteen fp32 elementwise passes), then the flash kernel.
+    Used only as the other arm of the global-route A/B."""
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+
+    gq, bq, gk, bk = qk_norm_params if qk_norm_params is not None else (None,) * 4
+    if rope_cos is not None or gq is not None:
+        q = fa.qk_prep_plain(q, gq, bq, rope_cos, rope_sin)
+        k = fa.qk_prep_plain(k, gk, bk, rope_cos, rope_sin)
+    return fa.flash_attention(q, k, v, key_bias)
+
+
+plain_prep_global_attention.supports_fused_qk_prep = True
+
+
+def global_route_ab(model, x, S: int) -> None:
+    """The bare forward with the global blocks on the fused wrapper (the
+    prep kernel, then the flash kernel: the route the port takes) and on
+    `plain_prep_global_attention`, four of each in turns after a warm-up of
+    each, and the largest difference of their outputs."""
+    import torch
+
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+
+    blocks = model.aggregator.global_blocks
+    routes = (("prep kernel (fused wrapper)", fa.attention),
+              ("plain torch prep + flash", plain_prep_global_attention))
+    times = {name: [] for name, _ in routes}
+    outs = {}
+
+    def use(fn):
+        for blk in blocks:
+            blk.attn.attn_fn = fn
+
+    with torch.inference_mode():
+        for name, fn in routes:
+            use(fn)
+            outs[name] = model(x)
+        for r in range(4):
+            for name, fn in (routes if r % 2 == 0 else routes[::-1]):
+                use(fn)
+                times[name].append(wall_s(lambda: model(x)))
+    use(fa.attention)
+    a, b = (outs[name] for name, _ in routes)
+    diffs = {k: rel_err(a[k], b[k]) for k in ("depth", "world_points", "part_feat")}
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    base = med[routes[1][0]]
+    log(f"[requests] global-route A/B, bare forward (median of 4, in turns): "
+        + ", ".join(f"{k} {v:.4f} s ({S / v:.2f} views/s, {100 * (v / base - 1):+.1f}%)"
+                    for k, v in med.items())
+        + "; max rel difference of the outputs "
+        + ", ".join(f"{k} {e:.2e}" for k, e in diffs.items())
+        + "; all runs " + json.dumps({k: [round(t, 4) for t in v] for k, v in times.items()}))
+
+
 def timed_request(proc, scene, out_dir):
     """Warm-up, then three requests: the first with the launch counts set to 0
     just before and read just after, and its peak memory; returns (results
@@ -1168,7 +1234,7 @@ def run_requests(launches_out: dict) -> bool:
         f"trunk {proc.cfg.trunk_dtype}, heads {proc.cfg.head_dtype}, built in "
         f"{time.time() - t0:.1f} s; clustering {proc.runtime.clustering}")
     agg = proc.cfg.aggregator
-    want = (agg.depth, agg.vit.depth + agg.depth + 1)
+    want = (2 * agg.depth, agg.vit.depth + 1)   # frame + global blocks fused
     want_ln = 2 * (agg.vit.depth + 2 * agg.depth)
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
@@ -1268,6 +1334,7 @@ def run_requests(launches_out: dict) -> bool:
                 for name, fn in (runs if r % 2 == 0 else runs[::-1]):
                     fwds[name].append(wall_s(fn))
         med = {k: float(np.median(v)) for k, v in fwds.items()}
+        global_route_ab(proc.model, x, S)
         log(f"[requests] {main} bare forward A/B (median of 4, in turns; the "
             f"baseline request phase read {base_fwd:.3f} s): "
             + ", ".join(f"{k} {v:.4f} s ({S / v:.2f} views/s, "

@@ -5,9 +5,9 @@ Counterpart of `iggt_official_tpu/models/aggregator.py`: images
 (frame-attention output ++ global-attention output) and patch_start_idx = 5
 (1 camera + 4 register tokens).  RoPE tables are computed once per forward
 and reshaped between the frame view (B*S, P) and the global view (B, S*P).
-The DINOv2 and frame blocks call ``attn_fn`` (the kernel dispatcher: the
-flash kernel, the fused kernel for the frame blocks' q/k prep); the global
-blocks call ``global_attn_fn`` (plain q/k prep, then the flash kernel).
+Every block calls ``attn_fn`` (the kernel dispatcher: the flash kernel for
+the DINOv2 blocks, the fused kernel for the frame and global blocks' q/k
+prep, at any length).
 With ``fused_ln=True`` every block's pre-norms (DINOv2, frame, global) go
 through the fused LayerNorm kernel.
 """
@@ -23,7 +23,7 @@ from iggt_official_tpu_torch.config import AggregatorConfig
 from iggt_official_tpu_torch.layers.blocks import Block
 from iggt_official_tpu_torch.layers.rope import compute_rope_2d, make_patch_positions
 from iggt_official_tpu_torch.layers.vit import ConvPatchEmbed, DinoViT
-from iggt_official_tpu_torch.ops.flash_attention import attention, global_attention
+from iggt_official_tpu_torch.ops.flash_attention import attention
 
 _RESNET_MEAN = (0.485, 0.456, 0.406)
 _RESNET_STD = (0.229, 0.224, 0.225)
@@ -41,7 +41,7 @@ class Aggregator(nn.Module):
     """Alternating frame/global attention over multi-view patch tokens."""
 
     def __init__(self, cfg: AggregatorConfig, dtype: torch.dtype = torch.float32,
-                 attn_fn: Callable = attention, global_attn_fn: Callable = global_attention):
+                 attn_fn: Callable = attention):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -63,7 +63,7 @@ class Aggregator(nn.Module):
             )
 
         self.frame_blocks = blocks(attn_fn)
-        self.global_blocks = blocks(global_attn_fn)
+        self.global_blocks = blocks(attn_fn)
 
     def forward(self, images: torch.Tensor,
                 fused_ln: bool = False) -> Tuple[List[torch.Tensor], int]:

@@ -1,26 +1,30 @@
 """Flash attention: hand-written Hopper kernels, their plain versions, dispatch.
 
 Counterpart of `iggt_official_tpu/ops/flash_attention.py`.  Both Pallas
-kernels of that module map onto one templated CUDA kernel
-(`csrc/flash_attention.cu`):
+kernels of that module map onto `csrc/flash_attention.cu`:
 
 - `flash_attention`: non-causal softmax(Q K^T D^-1/2 + key_bias) V, online
   softmax in fp32, for (B, N, H, D) tensors with D in {32, 64} and dtype in
-  {bf16, fp32}.
-- `flash_attention_fused`: the same with the aggregator's q/k prep (fp32
+  {bf16, fp32}.  bf16 runs a wgmma kernel fed by TMA, which reads q/k/v in
+  place through tensor maps (`_check_tma`); fp32 runs a scalar kernel.
+- `flash_attention_fused`: the same after the aggregator's q/k prep (fp32
   head-dim LayerNorm with the fast variance, then 2D RoPE from packed
-  (B, N, D) tables, one rounding to the compute dtype) applied to each q/k
-  tile inside the kernel.
+  (B, N, D) tables, one rounding to the compute dtype).  In bf16 a prep
+  kernel preps every q and k row once, into scratch the wrapper allocates;
+  the fp32 kernel preps each tile as it loads it.
 
-The wrappers launch the kernel for CUDA tensors (or raise) and take the
-plain version only for CPU tensors.  Each wrapper counts its launches in a
-plain integer attribute (`flash_attention.launches`,
-`flash_attention_fused.launches`).
+The wrappers launch the kernels for CUDA tensors (or raise) and take the
+plain version only for CPU tensors.  Each wrapper counts its calls that
+launch in a plain integer attribute (`flash_attention.launches`,
+`flash_attention_fused.launches`; a fused call is one count for its prep
+and attention launches).
 
 Dispatch (`attention`) keeps the JAX protocol (`supports_fused_qk_prep`):
-calls that carry RoPE tables or qk-norm params go to the fused kernel, the
-rest to the flash kernel.  `global_attention` is the aggregator's
-global-block function: plain q/k prep, then the flash kernel.
+calls that carry RoPE tables or qk-norm params go to the fused wrapper, the
+rest to the flash wrapper.  The aggregator's frame and global blocks both
+take it: with each q/k row prepped once, the fused route costs the same at
+any length (the JAX package takes unfused prep past 2048 tokens, for the
+TPU's reasons).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -115,6 +119,7 @@ def _kernel():
         + [p]                        # key_bias
         + [p, p, ll, ll]             # cos, sin, rope batch / row strides
         + [p, p, p, p]               # gamma_q, beta_q, gamma_k, beta_k
+        + [p, p]                     # prepped q / k scratch
         + [i, i, i, i]               # B, H, Nq, Nk
         + [ll] * 9                   # q, k, v strides (batch, row, head)
         + [f, f, p]                  # scale, eps, stream
@@ -129,8 +134,31 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """(batch, row, head) element strides of a (B, N, H, D) tensor; a dim of
+    size 1 takes the stride a contiguous tensor would have (it is never
+    stepped, and torch may report any stride there)."""
+    B, N, H, D = t.shape
+    sb, sn, sh, _ = t.stride()
+    return (sb if B > 1 else N * H * D, sn if N > 1 else H * D, sh if H > 1 else D)
+
+
+def _check_tma(t: torch.Tensor, strides: Tuple[int, int, int]) -> None:
+    """Raise ValueError unless TMA can read the bf16 (B, N, H, D) tensor ``t``
+    in place, through the tensor map (dims D, N, H, B; byte strides
+    2 * (row, head, batch)) that `csrc/flash_attention.cu::make_tensor_map`
+    encodes: base address and strides multiples of 16 bytes."""
+    sb, sn, sh = strides
+    if t.data_ptr() % 16 or (sb | sn | sh) % 8:   # 8 bf16 elements = 16 bytes
+        raise ValueError(
+            f"TMA needs a 16-byte aligned base and strides; got base offset "
+            f"{t.data_ptr() % 16}, byte strides (batch, row, head) = "
+            f"({2 * sb}, {2 * sn}, {2 * sh})")
+
+
 def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5):
-    """Check the inputs, allocate the output and launch the kernel."""
+    """Check the inputs, allocate the output (and, with the q/k prep in bf16,
+    the prepped q/k scratch) and launch the kernels."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -147,6 +175,12 @@ def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5):
     if k.shape != (B, Nk, H, D) or v.shape != (B, Nk, H, D):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
+    prep = cos is not None or norm is not None
+    strides = [_strides(t) for t in (q, k, v)]
+    if q.dtype == torch.bfloat16:
+        # TMA reads v, and q/k unless the prep kernel copies them to scratch
+        for i in (2,) if prep else (0, 1, 2):
+            _check_tma((q, k, v)[i], strides[i])
     if key_bias is not None:
         if key_bias.shape != (B, Nk):
             raise ValueError(f"key_bias must be (B, Nk) = {(B, Nk)}")
@@ -167,6 +201,10 @@ def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5):
         if any(t.shape != (D,) for t in norm):
             raise ValueError("qk-norm params must each be (D,)")
     gq, bq, gk, bk = norm if norm is not None else (None,) * 4
+    q_prep = k_prep = None
+    if prep and q.dtype == torch.bfloat16:
+        q_prep = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
+        k_prep = torch.empty((B, Nk, H, D), dtype=q.dtype, device=q.device)
 
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     lib = _kernel()
@@ -178,10 +216,9 @@ def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5):
             _ptr(key_bias),
             _ptr(cos), _ptr(sin), rope_sb, rope_sn,
             _ptr(gq), _ptr(bq), _ptr(gk), _ptr(bk),
+            _ptr(q_prep), _ptr(k_prep),
             B, H, Nq, Nk,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
+            *strides[0], *strides[1], *strides[2],
             1.0 / math.sqrt(D), eps, stream,
         )
     if err != 0:
@@ -223,7 +260,8 @@ def flash_attention_fused(
     key_bias: Optional[torch.Tensor] = None,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """Flash attention with the q/k prep inside the kernel.
+    """Flash attention after the q/k prep (in bf16 each row prepped once by
+    the prep kernel, then attended over by the wgmma kernel).
 
     q/k/v: (B, N, H, D) in the compute dtype, *before* norm/RoPE.
     rope_cos/rope_sin: (B, N, D) fp32 packed tables.
@@ -260,24 +298,3 @@ def attention(
 
 
 attention.supports_fused_qk_prep = True
-
-
-def global_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    key_bias: Optional[torch.Tensor] = None,
-    rope_cos: Optional[torch.Tensor] = None,
-    rope_sin: Optional[torch.Tensor] = None,
-    qk_norm_params: Optional[Sequence[torch.Tensor]] = None,
-) -> torch.Tensor:
-    """The aggregator's global blocks: plain q/k prep (one rounding after
-    LN + RoPE, as `_qk_prep_xla`), then the flash kernel at any length."""
-    gq, bq, gk, bk = qk_norm_params if qk_norm_params is not None else (None,) * 4
-    if rope_cos is not None or gq is not None:
-        q = qk_prep_plain(q, gq, bq, rope_cos, rope_sin)
-        k = qk_prep_plain(k, gk, bk, rope_cos, rope_sin)
-    return flash_attention(q, k, v, key_bias)
-
-
-global_attention.supports_fused_qk_prep = True

@@ -117,9 +117,10 @@ def test_qk_prep_plain_matches_xla(dtype):
 
 
 def test_dispatch_routes_and_counts():
-    """`attention` with the prep goes to the fused wrapper and `global_attention`
-    to plain prep + flash; both equal JAX `attention_fused` on the CPU, and CPU
-    calls launch no kernel (the counters stay put)."""
+    """`attention` with the prep (the frame and global blocks' route) goes to
+    the fused wrapper (on the CPU: plain prep + plain flash) and equals JAX
+    `attention_fused` on the CPU, and CPU calls launch no kernel (the
+    counters stay put)."""
     (q, k, v), (jq, jk, jv), _ = _inputs(4, 1, 60, 60, 2, 64, "float32")
     pos_t = trope.make_patch_positions(5, 11, 1, 5)
     tcos, tsin = trope.pack_rope_tables(trope.compute_rope_2d(pos_t, 64))
@@ -130,10 +131,9 @@ def test_dispatch_routes_and_counts():
     before = (tfa.flash_attention.launches, tfa.flash_attention_fused.launches)
     ref = jfa.attention_fused(jq, jk, jv, jcos, jsin,
                               tuple(jnp.asarray(x.numpy()) for x in norm))
-    for fn in (tfa.attention, tfa.global_attention):
-        assert fn.supports_fused_qk_prep
-        out = fn(q, k, v, rope_cos=tcos, rope_sin=tsin, qk_norm_params=norm)
-        np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5, rtol=0)
+    assert tfa.attention.supports_fused_qk_prep
+    out = tfa.attention(q, k, v, rope_cos=tcos, rope_sin=tsin, qk_norm_params=norm)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5, rtol=0)
     assert (tfa.flash_attention.launches, tfa.flash_attention_fused.launches) == before
 
 

@@ -93,6 +93,98 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda_device):
         fa.flash_attention(q, q, q)
 
 
+# (Nq, Nk): one key or query, just under / over one and two 64- and 128-row
+# tiles, the frame and 3-view global lengths, Nq != Nk both ways
+RAGGED = [(1, 1), (63, 63), (65, 65), (129, 129), (1374, 1374), (2607, 2607), (1, 2607),
+          (2607, 63), (65, 1374), (1374, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("nq,nk", RAGGED)
+def test_bf16_flash_kernel_ragged_lengths(cuda_device, D, nq, nk):
+    """The wgmma kernel at ragged lengths (TMA zero-fills rows past N; the
+    kernel masks keys past Nk and never stores rows past Nq), with and
+    without a key bias."""
+    q, _, _, _, _ = _qkv(cuda_device, torch.bfloat16, B=2, N=nq, H=3, D=D, seed=5)
+    _, k, v, bias, _ = _qkv(cuda_device, torch.bfloat16, B=2, N=nk, H=3, D=D, seed=6)
+    _assert_close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v))
+    _assert_close(fa.flash_attention(q, k, v, bias), fa.flash_attention_plain(q, k, v, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64])
+def test_bf16_flash_kernel_reads_strided_views_in_place(cuda_device, D):
+    """q/k/v as strided views of one packed qkv (row stride 3 H D) give the
+    same bits as contiguous copies: the tensor maps read the views in place."""
+    q, k, v, bias, _ = _qkv(cuda_device, torch.bfloat16, B=2, N=300, H=4, D=D, seed=7)
+    assert not q.is_contiguous()
+    out = fa.flash_attention(q, k, v, bias)
+    assert torch.equal(out, fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                               bias))
+    _assert_close(out, fa.flash_attention_plain(q, k, v, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_kernel_at_the_global_length(cuda_device, dtype):
+    """The fused path at N > 2048 (3 views of 5 + 24 x 36 tokens in one
+    row, as the global blocks hand it over): prep kernel + flash kernel
+    against `qk_prep_plain` + `flash_attention_plain`."""
+    q, k, v, _, norm = _qkv(cuda_device, getattr(torch, dtype), B=1, N=2607, H=2, D=64,
+                            seed=8)
+    pos = rope.make_patch_positions(24, 36, 3, 5, device=cuda_device).reshape(1, 2607, 2)
+    cos, sin = rope.pack_rope_tables(rope.compute_rope_2d(pos, 64))
+    n = fa.flash_attention_fused.launches
+    out = fa.flash_attention_fused(q, k, v, cos, sin, norm)
+    ref = fa.flash_attention_plain(fa.qk_prep_plain(q, norm[0], norm[1], cos, sin),
+                                   fa.qk_prep_plain(k, norm[2], norm[3], cos, sin), v)
+    _assert_close(out, ref)
+    assert fa.flash_attention_fused.launches == n + 1
+
+
+@pytest.mark.cuda
+def test_bf16_wrapper_raises_on_strides_tma_cannot_take(cuda_device):
+    """A row / head stride of 136 bytes (D = 64 cut from 68) is no multiple of
+    16 bytes: the wrapper raises before any launch."""
+    x = torch.zeros((1, 8, 2, 68), device=cuda_device, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(x, x, x)
+    n = fa.flash_attention_fused.launches
+    norm = [torch.ones(64, device=cuda_device)] * 4
+    with pytest.raises(ValueError, match="16-byte"):   # v is read through TMA
+        fa.flash_attention_fused(x.contiguous(), x.contiguous(), x, qk_norm_params=norm)
+    assert fa.flash_attention_fused.launches == n
+
+
+def test_strides_of_qkv_views_and_contiguous_tensors():
+    """Runs on the CPU: the (batch, row, head) element strides the kernels
+    get, which the bf16 kernel's tensor maps read as byte strides, for a view
+    of a packed qkv, a contiguous tensor, and a size-1 dim (it takes the
+    contiguous stride, whatever torch reports there); TMA takes all three."""
+    qkv = torch.zeros((2, 100, 3, 4, 64), dtype=torch.bfloat16)
+    q, k, _ = qkv.unbind(2)
+    assert fa._strides(q) == fa._strides(k) == (100 * 3 * 4 * 64, 3 * 4 * 64, 64)
+    c = torch.zeros((2, 100, 4, 32), dtype=torch.bfloat16)
+    assert fa._strides(c) == (100 * 4 * 32, 4 * 32, 32)
+    one = torch.zeros((1, 100, 4, 64), dtype=torch.bfloat16).as_strided(
+        (1, 100, 4, 64), (3, 256, 64, 1))
+    assert fa._strides(one) == (100 * 256, 256, 64)
+    for t in (q, k, c, one):
+        fa._check_tma(t, fa._strides(t))
+
+
+def test_tma_check_raises_on_what_tma_cannot_read():
+    """Runs on the CPU: a head stride of 136 bytes and a base 2 bytes off a
+    16-byte boundary."""
+    x = torch.zeros((2, 8, 2, 68), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check_tma(x, fa._strides(x))
+    x = torch.zeros(1 + 2 * 8 * 2 * 64, dtype=torch.bfloat16)[1:].view(2, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check_tma(x, fa._strides(x))
+
+
 @pytest.mark.cuda
 def test_nn1_kernel_matches_plain_at_backfill_shape(cuda_device):
     """65,536 queries against the 150,000-point clustering subsample: the
