@@ -54,10 +54,11 @@
 //     where rows allow; when fused, each q/k tile is prepped as it is loaded (the
 //     same prep_row as the bf16 prep kernel).
 
-#include <cuda.h>             // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -299,48 +300,6 @@ struct WgLayout {
   static constexpr size_t bytes = bars + 8 * (1 + 2 * wg::STAGES) + 1024;  // + base alignment
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of the given parity has completed.  A wait of more than
-// 2^32 cycles (~2 s; a real one takes microseconds) can only be a lost phase:
-// trap, so the launch fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - start > (1LL << 32)) __trap();
-  }
-}
-
 // A box of the 4-D tensor map (D, N, H, B) at (0, row, h, b) into shared memory.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int row,
                                          int h, int b) {
@@ -349,41 +308,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(h), "r"(b)
       : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading / stride byte
-// offsets (16-byte units), swizzle layout in bits 62-63; base offset 0 (tiles are
-// 1024-byte aligned).
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo,
-                                              uint32_t swizzle) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swizzle << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pin registers that an async wgmma reads or writes: the compiler may neither
-// move their uses across this point nor reuse them before it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int M, int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {   // 2^x; -1e30 gives 0
@@ -807,24 +731,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_kernel_simt(const Args a) {
 
 // ---------------------------------------------------------------------------
 // host side
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// The driver's tensor-map encoder, looked up through the runtime so that the
-// library needs no -lcuda.
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
 
 // A bf16 (B, N, H, D) tensor with element strides (sb, sn, sh, 1) as the 4-D tensor
 // map (D, N, H, B); boxes of `rows` rows of one (b, h), zero-filled past N.

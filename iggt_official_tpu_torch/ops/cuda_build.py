@@ -6,8 +6,9 @@ interface and is compiled on its own with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
 
-into `iggt_official_tpu_torch/build/`, keyed by a hash of the source, so an
-edited kernel is rebuilt and an unchanged one is loaded as it is.  The
+into `iggt_official_tpu_torch/build/`, keyed by a hash of the source and of
+the shared headers (`csrc/*.cuh`), so an edited kernel is rebuilt and an
+unchanged one is loaded as it is.  The
 compiler's register / spill report is kept beside the library.  Nothing is
 built while a module is imported: the build runs inside the first call that
 launches a kernel (or `build_all`).
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:16]
     return BUILD_DIR / f"{name}_{tag}.so"
 
 

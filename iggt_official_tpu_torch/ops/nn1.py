@@ -7,10 +7,13 @@ distance, summed over the feature axis in order with no FMA; ties go to the
 smallest reference index.  The clustering pipeline calls it for the 1-NN
 noise reassignment and the full-density backfill (`ops/cluster.py`).
 
-`nn1` launches the CUDA kernel (`csrc/nn1.cu`) for CUDA tensors, or raises,
+`nn1` launches the CUDA kernels (`csrc/nn1.cu`) for CUDA tensors, or raises,
 and takes `nn1_plain` only for CPU tensors.  It counts its launches in
-`nn1.launches`.  Kernel and plain version round every operation the same way,
-so they return equal indices, not merely close ones.
+`nn1.launches`.  The kernel filters the pairs on the tensor cores (TF32 with
+a hi/lo split) and runs the exact chain on every pair whose approximate
+distance lies within the recheck window of the least exact distance found
+(`filter_constants`, derived in `csrc/nn1.cu`), so kernel and plain version
+return equal indices, not merely close ones.
 
 `bucket_topk` is the counterpart of `nn1_pallas.py::bucket_topk_pallas`: per
 query, the nearest reference of each bucket (reference index mod ``nb``) by
@@ -31,7 +34,19 @@ import torch
 
 from iggt_official_tpu_torch.ops import cuda_build
 
-KERNEL_DIM = 8  # the part features' width; the kernel holds a row in registers
+KERNEL_DIM = 8  # the part features' width: one TF32 k8 step, one 32-byte row
+
+# The recheck window of the nn1 kernel (derivation in csrc/nn1.cu): a pair is
+# rechecked with the exact chain unless |q|^2 + |r|^2 - 2 q.r, as the kernel
+# computes it, exceeds T = bound * (1 + C_CHAIN * U) + A_q with
+# A_q = KAPPA * U * (|q|^2 + max |r|^2) + FLOOR.  The derived error of the
+# approximation is 102.5 U (|q|^2 + max |r|^2) and the chain's relative error
+# 10.02 U; KAPPA and C_CHAIN are more than twice those.
+U = 2.0 ** -24
+KAPPA = 256
+C_CHAIN = 32
+FLOOR = 2.0 ** -100
+FAULTS = {"window zero": (0, 0, 0.0, 3), "one TF32 pass": (KAPPA, C_CHAIN, FLOOR, 1)}
 
 
 def _check(query: torch.Tensor, ref: torch.Tensor) -> None:
@@ -70,12 +85,37 @@ def nn1_plain(query: torch.Tensor, ref: torch.Tensor, block_q: int = 4096) -> to
     return out
 
 
+def filter_constants(kappa: float = KAPPA, c: float = C_CHAIN,
+                     floor: float = FLOOR) -> Tuple[float, float, float]:
+    """(kappa * U, 1 + c * U, floor): the window as the kernel takes it,
+    each exact in fp32."""
+    return kappa * U, 1.0 + c * U, floor
+
+
+def recheck_threshold(bound, q2, max_r2, kappa: float = KAPPA, c: float = C_CHAIN,
+                      floor: float = FLOOR):
+    """T = bound * (1 + c U) + A_q, A_q = kappa U (|q|^2 + max |r|^2) + floor:
+    a pair whose |q|^2 + a~ exceeds T is not rechecked (the kernel computes
+    it in fp32 rounding upward; here in the arguments' own arithmetic)."""
+    ku, onepcu, fl = filter_constants(kappa, c, floor)
+    return bound * onepcu + (ku * (q2 + max_r2) + fl)
+
+
+def _filter_args(fault=None) -> Tuple[float, float, float, int]:
+    """What `_launch` hands the kernel: the window and the number of TF32
+    passes; a planted fault (`FAULTS`) replaces them."""
+    kappa, c, floor, passes = FAULTS[fault] if fault else (KAPPA, C_CHAIN, FLOOR, 3)
+    return (*filter_constants(kappa, c, floor), passes)
+
+
 @functools.cache
 def _kernel():
     lib = cuda_build.load("nn1")
-    p, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.iggt_nn1.argtypes = [p, p, p, ll, ll, p]
+    p, ll, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+    lib.iggt_nn1.argtypes = [p, p, p, ll, ll, p, f, f, f, ctypes.c_int, p, p, p]
     lib.iggt_nn1.restype = ctypes.c_int
+    lib.iggt_nn1_scratch_bytes.argtypes = [ll]
+    lib.iggt_nn1_scratch_bytes.restype = ll
     lib.iggt_bucket_min.argtypes = [p, p, p, p, ll, ll, ctypes.c_int, p,
                                     ctypes.POINTER(ctypes.c_int)]
     lib.iggt_bucket_min.restype = ctypes.c_int
@@ -89,7 +129,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+def _launch(query: torch.Tensor, ref: torch.Tensor, fault=None,
+            rechecks: torch.Tensor = None, probe: torch.Tensor = None) -> torch.Tensor:
+    """The kernels on CUDA tensors.  Private arguments for the card checks:
+    ``fault`` plants a fault (`FAULTS`), ``rechecks`` (one int64 on the card)
+    receives the number of exact chains computed, ``probe`` ((256, 64) fp32 on
+    the card) the a~ = |r|^2 - 2 q.r of the first 256 queries and 64
+    references."""
     if not query.is_cuda:
         raise ValueError("the nn1 kernel takes CUDA tensors")
     if query.shape[1] != KERNEL_DIM:
@@ -98,10 +144,15 @@ def _launch(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     query, ref = _aligned(query), _aligned(ref)
     out = torch.empty(query.shape[0], dtype=torch.int64, device=query.device)
     lib = _kernel()
+    scratch = torch.empty(lib.iggt_nn1_scratch_bytes(ref.shape[0]), dtype=torch.uint8,
+                          device=query.device)
+    ku, onepcu, floor, passes = _filter_args(fault)
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
         err = lib.iggt_nn1(query.data_ptr(), ref.data_ptr(), out.data_ptr(),
-                           query.shape[0], ref.shape[0], stream)
+                           query.shape[0], ref.shape[0], scratch.data_ptr(), ku, onepcu,
+                           floor, passes, None if rechecks is None else rechecks.data_ptr(),
+                           None if probe is None else probe.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("nn1 kernel failed to launch: "
                            + lib.iggt_cuda_error_string(err).decode())

@@ -14,7 +14,8 @@ its normalized ones, and the errors seen at the main path's shapes are one
 ulp of max|ref|.  The limit scales with the output because attention outputs
 shrink as ~sqrt(e / N) with N keys.  nn1 and bucket top-k: equal indices
 and distances (kernel and plain version round every subtraction, square and
-addition alike, and both take the smallest index among equal distances).
+addition alike, and both take the smallest index among equal distances; the
+nn1 kernel's tensor-core filter only decides which pairs get that chain).
 fused LayerNorm: bit for bit (the plain version sums in the kernel's warp
 order and rounds every step as the kernel does).  A CUDA tensor launches the
 kernel: the tests replace the plain versions with ones that raise.
@@ -215,6 +216,77 @@ def test_nn1_kernel_ties_go_to_the_smallest_index(cuda_device):
     out = nn1_mod.nn1(qry, ref)
     assert torch.equal(out, nn1_mod.nn1_plain(qry, ref))
     assert torch.equal(out[:20].cpu(), torch.arange(10, 30))
+
+
+def _nn1_equal_to_plain(qry, ref):
+    """One wrapper call: equal to the plain version, one launch counted."""
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+
+    n = nn1_mod.nn1.launches
+    out = nn1_mod.nn1(qry, ref)
+    torch.cuda.synchronize()
+    assert nn1_mod.nn1.launches == n + 1
+    assert torch.equal(out, nn1_mod.nn1_plain(qry, ref))
+    return out
+
+
+@pytest.mark.cuda
+def test_nn1_kernel_near_ties(cuda_device):
+    """4,096 unit queries with 16 references each at q + eps v (eps 1e-4 to
+    1e-3) among 150,000: the TF32 filter's rounding reorders the nearest
+    ones, the exact recheck must not."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    qry = torch.randn((4_096, 8), generator=gen, device=cuda_device)
+    qry /= qry.norm(dim=1, keepdim=True)
+    ref = torch.randn((150_000, 8), generator=gen, device=cuda_device)
+    ref /= ref.norm(dim=1, keepdim=True)
+    v = torch.randn((4_096, 16, 8), generator=gen, device=cuda_device)
+    v /= v.norm(dim=2, keepdim=True)
+    eps = 1e-4 + 9e-4 * torch.rand((4_096, 16, 1), generator=gen, device=cuda_device)
+    where = torch.randperm(150_000, generator=gen, device=cuda_device)[:4_096 * 16]
+    ref[where] = (qry[:, None] + eps * v).reshape(-1, 8)
+    out = _nn1_equal_to_plain(qry, ref)
+    assert torch.isin(out, where).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 63, 65, 129])
+@pytest.mark.parametrize("R", [1, 127, 129, 2_500])
+def test_nn1_kernel_ragged_sizes(cuda_device, Q, R):
+    """Query blocks (256 rows, m64 tiles) and reference stages (256 rows,
+    64-row sub-tiles) cut off anywhere."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5 + Q + R)
+    _nn1_equal_to_plain(torch.randn((Q, 8), generator=gen, device=cuda_device),
+                        torch.randn((R, 8), generator=gen, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_nn1_kernel_duplicates_across_tiles(cuda_device):
+    """Copies of a reference in other sub-tiles, stages and thread columns:
+    the smallest index wins, however the four threads of a row split them."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    ref = torch.randn((3_000, 8), generator=gen, device=cuda_device)
+    src = torch.arange(5, 45, device=cuda_device)
+    for shift in (41, 64, 257, 1_003, 2_550):      # other columns, sub-tiles, stages
+        ref[src + shift] = ref[src]
+    qry = torch.cat([ref[src], torch.randn((200, 8), generator=gen, device=cuda_device)])
+    out = _nn1_equal_to_plain(qry, ref)
+    assert torch.equal(out[:40], src)
+
+
+@pytest.mark.cuda
+def test_nn1_kernel_rows_past_the_filter_range(cuda_device):
+    """NaN-free rows with |x|^2 past 2^60 take the exact chain over every
+    reference inside the kernel: a huge query row alone, then a huge
+    reference row (every query row then)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    ref = torch.randn((2_000, 8), generator=gen, device=cuda_device)
+    qry = torch.randn((300, 8), generator=gen, device=cuda_device)
+    qry[7] = 2.0 ** 31
+    qry[8] = ref[1_500] * 3.0e18
+    _nn1_equal_to_plain(qry, ref)
+    ref[11] = -(2.0 ** 31)
+    _nn1_equal_to_plain(qry, ref)
 
 
 @pytest.mark.cuda
