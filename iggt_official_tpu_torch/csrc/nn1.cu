@@ -94,12 +94,20 @@
 // (...) + 2^-120 <= bound (1 + 10.02 u) + 102.5 u (...) + 2^-120 for any bound
 // that is the chain of a visited reference.  The kernel takes twice and more:
 // kappa = 256, c = 32, F = 2^-100; T and thr are computed rounding upward.
+// The accumulation model above is an assumption: PTX specifies neither the
+// order nor the rounding of wgmma's fp32 sums, and the CPU test
+// (tests/test_torch_nn1.py) can only emulate candidate orders.  So the kernel
+// keeps one diagnostic output, `probe`: block 0 writes the a~ of its first 64
+// references, as the hardware computed them, and the card check holds them to
+// the exact chain in units of u (|q|^2 + max |r|^2).  It costs a uniform
+// branch on a null pointer per sub-tile and is null on every call of the port.
 //
 // What bounds it (8 views 518 px backfill, 2,146,592 x 150,000): one TF32 pass
 // over every pair's dot product, 2 Q R 8 = 5.15e12 operations, 10.4 ms at
 // 495 TF/s; the three passes take 31.2 ms of tensor-core time, and the two
 // epilogue instructions per pair 19.3 ms of issue; each block reads the split
-// references, 10.2 MB, from L2 (85.5 GB a call).  On an H100 80GB HBM3 at
+// references, 10.2 MB, from L2 (85.5 GB a call, computed from the shapes: the
+// card's traffic counters cannot be read on the machines it was measured on).  On an H100 80GB HBM3 at
 // 700 W (PERF.md) it is latency-bound: variants without the epilogue showed
 // a fixed cost per wgmma commit group well beyond its products, and this
 // design's groups (3 x m64n64k8) are small.  Two sub-tiles in flight (128

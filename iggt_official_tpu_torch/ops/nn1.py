@@ -8,8 +8,9 @@ smallest reference index.  The clustering pipeline calls it for the 1-NN
 noise reassignment and the full-density backfill (`ops/cluster.py`).
 
 `nn1` launches the CUDA kernels (`csrc/nn1.cu`) for CUDA tensors, or raises,
-and takes `nn1_plain` only for CPU tensors.  It counts its launches in
-`nn1.launches`.  The kernel filters the pairs on the tensor cores (TF32 with
+and takes `nn1_plain` only for CPU tensors.  It counts its calls on the card
+in `nn1.launches`: each is one launch of the split kernel and one of the
+filter kernel.  The kernel filters the pairs on the tensor cores (TF32 with
 a hi/lo split) and runs the exact chain on every pair whose approximate
 distance lies within the recheck window of the least exact distance found
 (`filter_constants`, derived in `csrc/nn1.cu`), so kernel and plain version
@@ -90,15 +91,6 @@ def filter_constants(kappa: float = KAPPA, c: float = C_CHAIN,
     """(kappa * U, 1 + c * U, floor): the window as the kernel takes it,
     each exact in fp32."""
     return kappa * U, 1.0 + c * U, floor
-
-
-def recheck_threshold(bound, q2, max_r2, kappa: float = KAPPA, c: float = C_CHAIN,
-                      floor: float = FLOOR):
-    """T = bound * (1 + c U) + A_q, A_q = kappa U (|q|^2 + max |r|^2) + floor:
-    a pair whose |q|^2 + a~ exceeds T is not rechecked (the kernel computes
-    it in fp32 rounding upward; here in the arguments' own arithmetic)."""
-    ku, onepcu, fl = filter_constants(kappa, c, floor)
-    return bound * onepcu + (ku * (q2 + max_r2) + fl)
 
 
 def _filter_args(fault=None) -> Tuple[float, float, float, int]:

@@ -209,7 +209,9 @@ def _window_case(q, r):
             a = (r2[None, :] - 2 * dot).float().double()        # one FFMA rounding
             worst = torch.maximum(worst, (q2[:, None] + a - chain).abs())
     best = chain.min(1, keepdim=True).values
-    window = nn1_mod.recheck_threshold(best, q2[:, None], max_r2) - best
+    ku, onepcu, floor = nn1_mod.filter_constants()
+    # T = best (1 + c U) + A_q, A_q = kappa U (|q|^2 + max |r|^2) + F
+    window = best * onepcu + (ku * (q2[:, None] + max_r2) + floor) - best
     a_q = window - best * nn1_mod.C_CHAIN * nn1_mod.U
     derived = (102.5 * nn1_mod.U * (q2[:, None] + max_r2) + 10.02 * nn1_mod.U * chain
                + 2.0 ** -119)
@@ -267,7 +269,5 @@ def test_nn1_kernel_gets_the_tested_window():
                                    nn1_mod.FLOOR)
     assert all(float(np.float32(x)) == x for x in (ku, onepcu, floor))
     assert nn1_mod.KAPPA >= 2 * 102.5 and nn1_mod.C_CHAIN >= 2 * 10.02
-    best, q2, m = 0.25, 1.0, 2.0
-    assert nn1_mod.recheck_threshold(best, q2, m) == best * onepcu + ku * (q2 + m) + floor
     assert nn1_mod._filter_args("window zero") == (0.0, 1.0, 0.0, 3)
     assert nn1_mod._filter_args("one TF32 pass") == (ku, onepcu, floor, 1)
