@@ -13,10 +13,13 @@ order; any failure exits non-zero:
 3. kernels: each kernel's wrapper at the main path's shapes (all three
    requests) against its plain PyTorch version on the same inputs, and
    planted faults shown to fail the check.  Flash attention (the frame, global
-   and DINOv2 blocks, the fused q/k prep at the frame and the global shape, the
-   part head's cross-attention in fp32 and, as bf16 heads run it, in bf16):
-   error against a limit (printed with max|ref|), time and share of the bound;
-   faults are a wrong softmax scale, a dropped key tile, a wrong RoPE sign.
+   and DINOv2 blocks, the fused q/k prep at the frame and the global shape in
+   bf16 and, as `trunk_dtype="float32"` runs them, in fp32, the part head's
+   cross-attention in fp32 and, as bf16 heads run it, in bf16): error against
+   a limit (printed with max|ref|), time and share of the bound (fp32: three
+   TF32 passes at the TF32 peak, the fp32 FMA figure beside it); faults are a
+   wrong softmax scale, a dropped key tile, a wrong RoPE sign, and in fp32 one
+   TF32 pass instead of three and V^T without its key permutation.
    nn1: index mismatches, limit 0 (the kernel's answer is the exact chain's);
    faults are a dropped last reference tile, a dropped last feature, and
    reversed tie order; a near-tie case (4,096 unit queries, 16 references
@@ -34,7 +37,10 @@ order; any failure exits non-zero:
    (torch.profiler).  bucket_topk
    at Q = R = 150,000, k = 64, nb = 1024: 0 index mismatches in the bucket
    minima and the top-k; faults are bucket = index mod (nb - 1), reversed tie
-   order, a dropped last reference tile.  Kernel, plain and one PyTorch call
+   order, a dropped last reference tile; rechecks per (query, bucket); then
+   the bucket minima on nn1's near-tie case with duplicates across chunks,
+   compared in full, where the filter's faults (window zero, one TF32 pass)
+   must mismatch.  Kernel, plain and one PyTorch call
    computing the same function (`library_ms`, a yardstick the port never
    calls) timed with CUDA events.
 4. agreement: a scaled IGGT on the card through the kernels and on the CPU
@@ -49,7 +55,10 @@ order; any failure exits non-zero:
    on the card, with the wall time of each stage; it must give 6 clusters.
    Then the bucket top-k path: `bucket_topk` (no module calls it, as in the
    JAX package) as a core-kNN candidate on the clustering's 150,000-point
-   subsample of that scene, with its recall against the exact core kNN.
+   subsample of that scene, with its recall against the exact core kNN, and
+   its bucket minima there (smoothed features, full of near ties) against
+   the plain version on the first 16,384 queries: 0 index mismatches, with
+   the kernel's time and rechecks per (query, bucket).
 6. requests: the full-width `ModelConfig()` (ViT-L/14 trunk in bf16, fp32
    heads, random weights from a seed) through `IGGTProcessor.process_scene`
    on synthetic seeded scenes: 3 views at 504x336 (with seeded ground truth,
@@ -104,7 +113,10 @@ FP32_ABS = 1e-5
 # errors seen are one ulp of max|ref|.  Attention outputs shrink as
 # ~sqrt(e / N) with N keys, so the limit scales with the output, and every
 # case shows that planted faults exceed it.
-# fp32: the kernel multiplies in full fp32 (no TF32); only summation order differs.
+# fp32: the kernel runs three TF32 passes (hi.lo + lo.hi + hi.hi of the split
+# operands; 2^-20 |x||y| per product) and adds each key tile's P.V to O in fp32
+# registers, so it stays within ~3e-6 of the plain version; one TF32 pass, or
+# V^T without its key permutation, is a planted fault that must exceed 1e-5.
 
 
 def error_limit(dtype_name: str, ref_max: float) -> float:
@@ -181,13 +193,19 @@ def voronoi_scene(views: int, h: int, w: int, seed: int = 1):
 
 def attention_bound_ms(B, Nq, Nk, H, D, dtype_name, extra_bytes=0):
     """Least time for the work: each input read once and the output written
-    once over the HBM rate, against Q.K^T + P.V flops over the dtype's peak."""
+    once over the HBM rate, against Q.K^T + P.V flops over the peak of the
+    route that can reach the accuracy: bf16 tensor cores for bf16; for fp32
+    three TF32 passes (one pass cannot hold 1e-5), 3 x the flops at the TF32
+    peak.  Returns (bound ms, what bounds it, the fp32 FMA figure in ms: the
+    flops once at the fp32 peak, printed beside the fp32 bound)."""
     itemsize = 2 if dtype_name == "bfloat16" else 4
     nbytes = (2 * B * Nq * H * D + 2 * B * Nk * H * D) * itemsize + extra_bytes
     flops = 4 * B * H * Nq * Nk * D
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_OPS_PER_S[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    t_ops = (flops / PEAK_OPS_PER_S["bfloat16"] if dtype_name == "bfloat16"
+             else 3 * flops / PEAK_OPS_PER_S["tf32"])
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations"),
+            flops / PEAK_OPS_PER_S["float32"] * 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +221,11 @@ KERNEL_CASES = (
      False),
     ("global block q/k prep, 8 views 518px", "flash_attention_fused", (1, 10992, 16, 64),
      "bfloat16", False),
+    # trunk_dtype="float32": the frame and global blocks' fused route in fp32
+    ("frame block q/k prep, fp32 trunk, 8 views 518px", "flash_attention_fused",
+     (8, 1374, 16, 64), "float32", False),
+    ("global block q/k prep, fp32 trunk, 8 views 518px", "flash_attention_fused",
+     (1, 10992, 16, 64), "float32", False),
     ("global block, 8 views 504x336", "flash_attention", (1, 6952, 16, 64), "bfloat16", False),
     ("frame/DINOv2 block, 8 views 504x336", "flash_attention", (8, 869, 16, 64), "bfloat16", False),
     ("part cross-attention, 8 views 504x336", "flash_attention", (8, 864, 8, 32), "float32", False),
@@ -242,10 +265,12 @@ KEY_TILE = 64
 
 def check_kernels():
     """Each case: kernel against plain version (error, limit, max|ref|), then
-    three planted faults, made by handing the kernel altered inputs, which
-    must each exceed the limit: the softmax scale off by sqrt(2) (q, or the
-    q-norm affine, times sqrt(2)), the last key tile dropped, and (fused) the
-    RoPE sine's sign flipped on a quarter of the head dims."""
+    planted faults that must each exceed the limit: made by handing the kernel
+    altered inputs, the softmax scale off by sqrt(2) (q, or the q-norm affine,
+    times sqrt(2)), the last key tile dropped, and (fused) the RoPE sine's
+    sign flipped on a quarter of the head dims; and in fp32 two faults of the
+    kernel itself (`flash_attention.FP32_FAULTS`): one TF32 pass instead of
+    three, V^T without the key permutation."""
     import torch
     import torch.nn.functional as F
 
@@ -313,6 +338,11 @@ def check_kernels():
                     q, cut(k), cut(v), cut(bias)),
             }
             qp, kp = q.transpose(1, 2), k.transpose(1, 2)
+        if dtype_name == "float32":
+            prep_args = (cos, sin, norm) if kernel == "flash_attention_fused" else ()
+            for fault in fa.FP32_FAULTS:
+                faults[fault] = (lambda fault=fault, prep_args=prep_args:
+                                 fa._launch(q, k, v, bias, *prep_args, fault=fault))
         vt = v.transpose(1, 2)
         mask = None if bias is None else bias[:, None, None, :].to(dtype)
 
@@ -332,13 +362,16 @@ def check_kernels():
         ms = time_ms(run_kernel)
         plain_ms = time_ms(run_plain, iters=3, warmup=1)
         library_ms = time_ms(run_library)
-        bound_ms, bound_by = attention_bound_ms(B, N, N, H, D, dtype_name, extra)
+        bound_ms, bound_by, fma_ms = attention_bound_ms(B, N, N, H, D, dtype_name, extra)
         ok = finite and err <= limit and caught
+        fp32_note = (f"; three TF32 passes, fp32 FMA figure {fma_ms:.4f}"
+                     if dtype_name == "float32" else "")
         log(f"[kernels] {kernel:22s} {label:38s} {(B, N, H, D)} {dtype_name:8s} "
             f"max_abs_err={err:.3e} (limit {limit:.3e}, max|ref| {ref_max:.3e}) "
             f"{'ok' if ok else 'FAIL'} | "
-            f"ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; {100 * bound_ms / ms:.1f}% of "
-            f"the bound) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f}")
+            f"ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}{fp32_note}; "
+            f"{100 * bound_ms / ms:.1f}% of the bound) plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f}")
         log(f"[kernels]   planted faults: "
             + ", ".join(f"{name} err {e:.3e} ({e / limit:.1f}x limit)"
                         for name, e in fault_errs.items())
@@ -780,14 +813,77 @@ def within_bucket_reversal(R: int, nb: int):
     return perm, pos
 
 
-def bucket_topk_bound_ms(Q: int, R: int, k: int, D: int = 8):
-    """3 * Q * R * D fp32 operations (the Pallas CostEstimate) over the fp32
-    peak, against the inputs read once and the (Q, k) distances and int64
-    indices written once; and the no-FMA instruction floor."""
-    t_ops = 3 * Q * R * D / PEAK_OPS_PER_S["float32"]
-    t_bytes = ((Q + R) * D * 4 + Q * k * 12) / PEAK_BYTES_PER_S
+def bucket_topk_bound_ms(Q: int, R: int, nb: int, D: int = 8):
+    """The least time for the work the bucket kernel's design must do: one
+    TF32 pass over every pair's dot product, 2 Q R D operations at the TF32
+    peak, against the inputs read once and the (Q, nb) minima and their int64
+    indices written once.  Beside it, named as such: the three passes'
+    tensor-core floor, the minima's write time alone, and the fp32 FMA figure
+    of the exact chain on every pair (3 Q R D at the fp32 peak), the bound
+    of the design before this one."""
+    t_ops = 2 * Q * R * D / PEAK_OPS_PER_S["tf32"]
+    t_write = Q * nb * 12 / PEAK_BYTES_PER_S
+    t_bytes = (Q + R) * D * 4 / PEAK_BYTES_PER_S + t_write
     return (max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes > t_ops else "operations",
-            2 * t_ops * 1e3)
+            {"tensor_floor_3_passes_ms": 3 * t_ops * 1e3, "minima_write_ms": t_write * 1e3,
+             "exact_chain_fma_ms": 3 * Q * R * D / PEAK_OPS_PER_S["float32"] * 1e3})
+
+
+def bucket_rechecks(qry, ref, nb) -> float:
+    """Exact chains the bucket kernel computed per (query, bucket) (a launch
+    outside the main path's count)."""
+    import torch
+
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+
+    counter = torch.zeros(1, dtype=torch.int64, device=qry.device)
+    nn1_mod.bucket_minima_kernel(qry, ref, nb, rechecks=counter)
+    return counter.item() / (qry.shape[0] * nb)
+
+
+def check_bucket_near_ties(gen):
+    """The bucket minima on nn1's near-tie case (4,096 unit queries, 16
+    references each within 1e-4 to 1e-3 among 150,000), with exact duplicates
+    in other chunks of the same buckets (references 3 nb + t copied to
+    100 nb + t, and queries 0..63 on them), compared in full; the two filter
+    faults (`nn1.FAULTS`) must mismatch there."""
+    import torch
+
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+
+    nb = BT_NB
+    qry, ref = nn1_near_tie_inputs(gen)
+    t = torch.arange(BT_DUP, device=ref.device)
+    ref[100 * nb + t] = ref[3 * nb + t]
+    qry[:BT_DUP] = ref[3 * nb + t]
+    Q, R = qry.shape[0], ref.shape[0]
+    bd, bi = nn1_mod.bucket_minima_kernel(qry, ref, nb)
+    pd, pi = nn1_mod.bucket_minima_plain(qry, ref, nb)
+    mismatches = int((bi != pi).sum())
+    d_equal = bool(torch.equal(bd, pd))
+    fault_mm = {name: int((nn1_mod.bucket_minima_kernel(qry, ref, nb, fault=name)[1] != pi).sum())
+                for name in nn1_mod.FAULTS}
+    caught = all(m > 0 for m in fault_mm.values())
+    rechecks = bucket_rechecks(qry, ref, nb)
+    ms = time_ms(lambda: nn1_mod.bucket_minima_kernel(qry, ref, nb), iters=3, warmup=1)
+    plain_ms = time_ms(lambda: nn1_mod.bucket_minima_plain(qry, ref, nb), iters=1, warmup=0)
+    bound_ms, bound_by, _ = bucket_topk_bound_ms(Q, R, nb)
+    ok = mismatches == 0 and d_equal and caught
+    log(f"[kernels] bucket_min near ties ({NN1_NEAR_K} planted per query at eps "
+        f"{NN1_NEAR_EPS[0]:g}-{NN1_NEAR_EPS[1]:g}, {BT_DUP} duplicates across chunks) Q={Q} "
+        f"R={R} nb={nb}: {mismatches} index mismatches of {Q * nb} (limit 0), distances equal "
+        f"{d_equal} {'ok' if ok else 'FAIL'} | rechecks {rechecks:.3f} per (query, bucket) | "
+        f"kernel ms={ms:.3f} plain_ms={plain_ms:.3f}")
+    log("[kernels]   planted faults of the filter: "
+        + ", ".join(f"{name} {m} mismatches" for name, m in fault_mm.items())
+        + (" -- all caught" if caught else " -- NOT ALL CAUGHT"))
+    return dict(
+        kernel="bucket_topk", label="bucket minima, near ties", shape=[Q, R, 8, 0, nb],
+        dtype="float32", max_abs_err=float(mismatches), mismatches=mismatches, compared=Q,
+        distances_equal=d_equal, fault_mismatches=fault_mm, ok=ok, ms=ms, kernel_ms=ms,
+        plain_ms=plain_ms, library_ms=None, library_queries=0, library_kernel_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, rechecks_per_pair=rechecks,
+    )
 
 
 def check_bucket_topk():
@@ -795,9 +891,11 @@ def check_bucket_topk():
     queries: 0 index mismatches in the (Q, nb) bucket minima and in the top-k,
     equal squared distances and distances; three planted faults that must
     mismatch: bucket = index mod (nb - 1), reversed tie order inside each
-    bucket, the last tile of nb references dropped; then times: the wrapper
-    (kernel + stable sort), the kernel alone, the plain version at full Q, and
-    `torch.cdist` + `torch.topk` on BT_COMPARE queries (kernel there too)."""
+    bucket, the last tile of nb references dropped; rechecks per (query,
+    bucket), counted on the card; then times: the wrapper (kernel + stable
+    sort), the kernel alone, the plain version at full Q, and `torch.cdist` +
+    `torch.topk` on BT_COMPARE queries (kernel there too).  Then the near-tie
+    case (`check_bucket_near_ties`)."""
     import torch
 
     from iggt_official_tpu_torch.ops import nn1 as nn1_mod
@@ -828,6 +926,7 @@ def check_bucket_topk():
     }
     fault_mm = {name: int((j != want_i).sum()) for name, j in faults.items()}
     caught = all(m > 0 for m in fault_mm.values())
+    rechecks = bucket_rechecks(pts, pts, nb)
 
     ms = time_ms(lambda: nn1_mod.bucket_topk(pts, pts, k, nb), iters=3, warmup=1)
     kernel_ms = time_ms(lambda: nn1_mod.bucket_minima_kernel(pts, pts, nb), iters=3, warmup=1)
@@ -835,14 +934,17 @@ def check_bucket_topk():
     library_ms = time_ms(lambda: torch.topk(torch.cdist(pts[:C], pts), k, largest=False),
                          iters=3, warmup=1)
     slice_ms = time_ms(lambda: nn1_mod.bucket_topk(pts[:C], pts, k, nb), iters=3, warmup=1)
-    bound_ms, bound_by, floor_ms = bucket_topk_bound_ms(Q, Q, k)
+    bound_ms, bound_by, floors = bucket_topk_bound_ms(Q, Q, nb)
     ok = mm_min == 0 and mm_topk == 0 and d_equal and self_first and caught
     log(f"[kernels] bucket_topk Q=R={Q} k={k} nb={nb}: on {C} queries {mm_min} bucket-minimum "
         f"and {mm_topk} top-k index mismatches (limit 0), distances equal {d_equal}, self "
-        f"at distance 0 {self_first} {'ok' if ok else 'FAIL'} | ms={ms:.3f} (kernel alone "
-        f"{kernel_ms:.3f}) bound_ms={bound_ms:.3f} ({bound_by}; no-FMA instruction floor "
-        f"{floor_ms:.3f}) plain_ms={plain_ms:.1f} | on {C} queries: library_ms={library_ms:.3f} "
-        f"(cdist + topk) bucket_topk {slice_ms:.3f}")
+        f"at distance 0 {self_first} {'ok' if ok else 'FAIL'} | rechecks {rechecks:.3f} per "
+        f"(query, bucket) | ms={ms:.3f} (wrapper) kernel alone {kernel_ms:.3f}, bound_ms="
+        f"{bound_ms:.3f} ({bound_by}, one TF32 pass; {100 * bound_ms / kernel_ms:.1f}% of it "
+        f"for the kernel; three-pass floor {floors['tensor_floor_3_passes_ms']:.3f}, minima "
+        f"write {floors['minima_write_ms']:.3f}, exact-chain fp32 FMA figure "
+        f"{floors['exact_chain_fma_ms']:.3f}) plain_ms={plain_ms:.1f} | on {C} queries: "
+        f"library_ms={library_ms:.3f} (cdist + topk) bucket_topk {slice_ms:.3f}")
     log("[kernels]   planted faults: "
         + ", ".join(f"{name} {m} mismatches" for name, m in fault_mm.items())
         + (" -- all caught" if caught else " -- NOT ALL CAUGHT"))
@@ -852,11 +954,12 @@ def check_bucket_topk():
         compared=C, distances_equal=d_equal, fault_mismatches=fault_mm, ok=ok, ms=ms,
         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, library_queries=C,
         library_kernel_ms=slice_ms, bound_ms=bound_ms, bound_by=bound_by,
-        instruction_floor_ms=floor_ms,
+        rechecks_per_pair=rechecks,
     )
     del pts, bd, bi, pd, pi, faults
+    near = check_bucket_near_ties(gen)
     torch.cuda.empty_cache()
-    return [result]
+    return [result, near]
 
 
 CASE_KEYS = {
@@ -871,7 +974,7 @@ CASE_KEYS = {
                  "library_ms"),
     "bucket_topk": ("label", "shape", "mismatches", "compared", "distances_equal",
                     "fault_mismatches", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "library_queries", "library_kernel_ms"),
+                    "library_ms", "library_queries", "library_kernel_ms", "rechecks_per_pair"),
 }
 CASE_KEYS["flash_attention_fused"] = CASE_KEYS["flash_attention"]
 LAUNCHES_FROM = {
@@ -906,7 +1009,8 @@ def kernels_summary(results, launches, extra):
             "library_ms": main["library_ms"],
             "shape": main["shape"],
             **{k: main[k] for k in ("library_queries", "library_kernel_ms", "kernel_ms",
-                                    "rechecks_per_query", "probe_error_units",
+                                    "rechecks_per_query", "rechecks_per_pair",
+                                    "probe_error_units",
                                     "device_ms", "library_device_ms")
                if k in main},
             "cases": [{k: r[k] for k in CASE_KEYS[kernel]} for r in cases],
@@ -1113,7 +1217,10 @@ def run_postproc(launches_out: dict) -> bool:
     a core-kNN candidate (what the JAX package's `benchmarks/ab_bucket_topk.py`
     measured) on the clustering's own 150,000-point subsample of this scene,
     k = 64, its count set to 0 just before and read just after, its recall
-    against the clustering's exact core kNN (`brute_knn`)."""
+    against the clustering's exact core kNN (`brute_knn`).  On the same
+    smoothed features (full of near ties): the bucket minima of the first
+    BT_COMPARE queries against the plain version (0 index mismatches), the
+    kernel's time alone and its rechecks per (query, bucket)."""
     import torch
 
     from iggt_official_tpu_torch.ops import nn1 as nn1_mod
@@ -1162,13 +1269,22 @@ def run_postproc(launches_out: dict) -> bool:
     ex_s = time.perf_counter() - t0
     probe = torch.arange(0, sub.shape[0], 97, device=sub.device)
     hits = (idx[probe][:, :, None] == ex_i[probe][:, None, :]).any(-1).float().mean().item()
+    bd, bi = nn1_mod.bucket_minima_kernel(sub[:BT_COMPARE], sub, BT_NB)
+    pd, pi = nn1_mod.bucket_minima_plain(sub[:BT_COMPARE], sub, BT_NB)
+    mismatches = int((bi != pi).sum())
+    d_equal = bool(torch.equal(bd, pd))
+    kernel_ms = time_ms(lambda: nn1_mod.bucket_minima_kernel(sub, sub, BT_NB), iters=3, warmup=1)
+    rechecks = bucket_rechecks(sub, sub, BT_NB)
     good = (launches_out["bucket_topk"] == 1 and bool((dist[:, 0] == 0).all())
-            and bool(torch.isfinite(dist).all()) and hits > 0.9)
+            and bool(torch.isfinite(dist).all()) and hits > 0.9 and mismatches == 0 and d_equal)
     log(f"[postproc] bucket top-k path (core-kNN candidate) on the scene's {sub.shape[0]}-point "
         f"subsample, k={BT_K}: {1e3 * bt_s:.2f} ms against the exact core kNN's "
         f"{1e3 * ex_s:.2f} ms; recall@{BT_K} {hits:.4f} on {probe.numel()} probed queries; "
-        f"bucket_topk launches {launches_out['bucket_topk']} {'ok' if good else 'FAIL'}")
-    del pts, fts, smoothed, flat, sub, dist, idx, ex_d, ex_i
+        f"bucket_topk launches {launches_out['bucket_topk']}; bucket minima on the first "
+        f"{BT_COMPARE} queries: {mismatches} index mismatches (limit 0), distances equal "
+        f"{d_equal}; kernel alone {kernel_ms:.3f} ms, rechecks {rechecks:.3f} per (query, "
+        f"bucket) {'ok' if good else 'FAIL'}")
+    del pts, fts, smoothed, flat, sub, dist, idx, ex_d, ex_i, bd, bi, pd, pi
     torch.cuda.empty_cache()
     return ok and good
 

@@ -24,9 +24,12 @@ Usage:
         [--exact_clustering] [--image_size 504 336] [--conf_threshold 0.3] \
         [--head_dtype float32|bfloat16] [--device cuda]
 
-Weights are random (from a seed) unless ``--model_path`` names a state dict
-saved from this package's model (`torch.save(model.state_dict(), path)`),
-whose names are the reference checkpoint's.
+Weights are random (from a seed) unless ``--model_path`` names a checkpoint
+in the reference layout: the published IGGT checkpoint (bare, wrapped in
+``"model"`` or with a DDP ``module.`` prefix) or a state dict saved from this
+package's model, whose names are the reference's.  `utils/checkpoint.py`
+merges it by name with a shape check and logs what it matched, what it
+dropped and what it could not use (`IGGTProcessor.load_report`).
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from iggt_official_tpu_torch.models.vggt import IGGT, build_model
 from iggt_official_tpu_torch.ops.cluster import cluster_features_to_masks_mv, trace_stage
 from iggt_official_tpu_torch.ops.knn import knn_smooth_features
 from iggt_official_tpu_torch.ops.pca import normalize_and_pca
+from iggt_official_tpu_torch.utils.checkpoint import load_reference_state, read_checkpoint
 from iggt_official_tpu_torch.utils.colormaps import get_cmap
 from iggt_official_tpu_torch.utils.device import resolve_device
 from iggt_official_tpu_torch.utils.glb import predictions_to_glb
@@ -126,6 +130,7 @@ class IGGTProcessor:
                  device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0):
         self.device = resolve_device(device)
+        self.load_report = None
         self.cfg = model_cfg or ModelConfig()
         self.runtime = runtime or RuntimeConfig()
         self.evaluator = SceneEvaluator()
@@ -139,8 +144,8 @@ class IGGTProcessor:
         if model_path is None:
             logger.warning("No checkpoint given: running with random weights (seed %d)", seed)
             return model
-        state = torch.load(model_path, map_location=self.device, weights_only=True)
-        model.load_state_dict(state)
+        self.load_report = load_reference_state(
+            model, read_checkpoint(model_path), log=logger.info)
         return model
 
     def process_scene(self, target_dir: str, save_dir: str,

@@ -47,12 +47,25 @@
 //     consumers run independently, so one's softmax also overlaps the other's
 //     products.  setmaxnreg moves registers from the producer (24) to the
 //     consumers (240).
-//   * flash_kernel_simt (fp32: the part head's cross-attention with fp32 heads, and
-//     the fp32 trunk): one block of 4 warps per (64-row query tile, b*h), scalar FMAs
-//     in full fp32 (no TF32), logits and the accumulator in shared memory, each lane
-//     owning two key columns of S and the same output columns of O; 16-byte loads
-//     where rows allow; when fused, each q/k tile is prepped as it is loaded (the
-//     same prep_row as the bf16 prep kernel).
+//   * flash_kernel_tf32_prep + flash_kernel_tf32 (fp32: the part head's
+//     cross-attention with fp32 heads, one launch per forward, and the fp32
+//     trunk).  fp32 must hold 1e-5 abs against the plain version, which one
+//     TF32 pass (10-bit mantissas) cannot: the kernel runs three, x.y ~
+//     x_hi.y_hi + x_hi.y_lo + x_lo.y_hi, with x_hi = cvt.rna.tf32(x) and x_lo =
+//     x - x_hi exact in fp32, which the tensor core reads truncated to TF32:
+//     |x_lo| <= 2^-11 |x|, the truncation drops at most 2^-10 |x_lo|, so each
+//     product errs by at most (2^-21 + 2^-21 + 2^-22) |x||y| = 1.25 * 2^-20
+//     |x||y| before the fp32 accumulation (the nn1 filter's split, csrc/nn1.cu).
+//     The prep kernel writes the split once per call (after the q/k
+//     LayerNorm and RoPE when fused: each row prepped once, as in bf16), V
+//     transposed because TF32 wgmma takes K-major operands only and TMA does
+//     not transpose fp32; the attention kernel is the bf16 kernel's structure
+//     (TMA producer, mbarrier ring of 64-key stages, two consumer warpgroups,
+//     setmaxnreg) with S and P.V each as three wgmma.m64nNk8.tf32 passes, P
+//     split in registers.  Details and the key permutation above the kernels.
+//     Bound: three TF32 passes, 3 x 4 B H Nq Nk D flops at 495 TF/s (0.093 ms
+//     for the part head at 8 x 518 px, against 0.229 ms for one fp32 FMA pass
+//     at 67 TF/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,25 +75,8 @@
 
 namespace {
 
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 64;                 // keys per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROWS = BQ / NWARPS;      // query rows owned by one warp
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-
-template <typename T> struct Num;
-template <> struct Num<float> {
-  __device__ static float f(float x) { return x; }
-  __device__ static float t(float x) { return x; }
-};
-template <> struct Num<__nv_bfloat16> {
-  __device__ static float f(__nv_bfloat16 x) { return __bfloat162float(x); }
-  __device__ static __nv_bfloat16 t(float x) { return __float2bfloat16(x); }
-};
-
-__host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
 struct Args {
   const void* q; const void* k; const void* v; void* o;
@@ -110,37 +106,6 @@ __device__ __forceinline__ float warp_max(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [n0, n0+64) of one head into a shared tile with row stride LDT;
-// rows >= n_valid are zero.  16-byte vector loads when the source rows allow it.
-template <typename T, int D, int LDT>
-__device__ void load_tile(T* dst, const T* src, long long sn, int n0, int n_valid) {
-  constexpr int VE = 16 / sizeof(T);            // elements per 16-byte vector
-  constexpr int VPR = D / VE;                   // vectors per row
-  const bool vec = ((reinterpret_cast<uintptr_t>(src) |
-                     static_cast<uintptr_t>(sn * sizeof(T))) % 16) == 0;
-  if (vec) {
-    for (int idx = threadIdx.x; idx < 64 * VPR; idx += NTHREADS) {
-      const int r = idx / VPR, c = (idx % VPR) * VE;
-      const int n = n0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (n < n_valid) val = *reinterpret_cast<const uint4*>(src + (long long)n * sn + c);
-      if constexpr ((LDT * sizeof(T)) % 16 == 0) {
-        *reinterpret_cast<uint4*>(dst + r * LDT + c) = val;
-      } else {
-        const T* e = reinterpret_cast<const T*>(&val);
-#pragma unroll
-        for (int i = 0; i < VE; ++i) dst[r * LDT + c + i] = e[i];
-      }
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < 64 * D; idx += NTHREADS) {
-      const int r = idx / D, d = idx % D;
-      const int n = n0 + r;
-      dst[r * LDT + d] = n < n_valid ? src[(long long)n * sn + d] : Num<T>::t(0.f);
-    }
-  }
 }
 
 // The q/k prep of one row held in registers, each lane owning columns
@@ -179,45 +144,6 @@ __device__ __forceinline__ void prep_row(float (&x)[D / 32], const Args& a, int 
   }
 }
 
-// The q/k prep on rows [n0, n0+64) of a tile (the fp32 kernel's fused variant):
-// each warp takes 16 rows, each lane D/32 columns, then one cast to T.
-template <typename T, int D, int LDT>
-__device__ void load_tile_prepped(T* dst, const T* src, long long sn, int n0, int n_valid,
-                                  const Args& a, int b, const float* gamma, const float* beta) {
-  constexpr int E = D / 32;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = 0; i < ROWS; ++i) {
-    const int r = warp * ROWS + i;
-    const int n = n0 + r;
-    float x[E];
-    if (n < n_valid) {                           // warp-uniform
-#pragma unroll
-      for (int e = 0; e < E; ++e) x[e] = Num<T>::f(src[(long long)n * sn + e * 32 + lane]);
-      prep_row<D>(x, a, b, n, gamma, beta);
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) dst[r * LDT + e * 32 + lane] = Num<T>::t(x[e]);
-  }
-}
-
-template <typename T, int D, int LDT, bool FUSED, bool HAS_BIAS>
-__device__ __forceinline__ void load_kv_tile(T* Ks, T* Vs, float* Bs, const T* kp, const T* vp,
-                                             int k0, const Args& a, int b) {
-  if (FUSED) {
-    load_tile_prepped<T, D, LDT>(Ks, kp, a.k_sn, k0, a.Nk, a, b, a.gk, a.bk);
-  } else {
-    load_tile<T, D, LDT>(Ks, kp, a.k_sn, k0, a.Nk);
-  }
-  load_tile<T, D, LDT>(Vs, vp, a.v_sn, k0, a.Nk);
-  if (HAS_BIAS && threadIdx.x < BK) {
-    const int key = k0 + threadIdx.x;
-    Bs[threadIdx.x] = key < a.Nk ? a.key_bias[(long long)b * a.Nk + key] : 0.f;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // bf16 q/k prep (fused variant): every row once, into contiguous (B, N, H, D) scratch.
 
@@ -252,7 +178,7 @@ __global__ void __launch_bounds__(PREP_WARPS * 32)
       bs[r] = row / (a.H * N);
       const T* src = base + bs[r] * sb + ns[r] * sn + h * sh;
 #pragma unroll
-      for (int e = 0; e < E; ++e) x[r][e] = Num<T>::f(src[e * 32 + lane]);
+      for (int e = 0; e < E; ++e) x[r][e] = __bfloat162float(src[e * 32 + lane]);
     }
   }
   // every row is prepped before any is stored, so the compiler may issue all rows'
@@ -270,7 +196,7 @@ __global__ void __launch_bounds__(PREP_WARPS * 32)
     if (row >= rows) break;                      // warp-uniform
     T* dst = out + (long long)row * D;
 #pragma unroll
-    for (int e = 0; e < E; ++e) dst[e * 32 + lane] = Num<T>::t(x[r][e]);
+    for (int e = 0; e < E; ++e) dst[e * 32 + lane] = __float2bfloat16(x[r][e]);
   }
 }
 
@@ -381,20 +307,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[
 }
 
 
-// Online softmax of one 64 x 128 logit tile in the wgmma accumulator layout, for
+// Online softmax of one 64 x NK logit tile in the wgmma accumulator layout, for
 // this thread's rows g and g + 8: the running max m (log2 units: logits times
 // D^-1/2 log2(e)), this thread's share l of the running sums, the factor al that
 // rescales what was accumulated before.  Leaves P = 2^(s - m) in sc.
+template <int NK>
 struct Softmax {
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, al0 = 0.f, al1 = 0.f;
 
   template <bool HAS_BIAS>
-  __device__ __forceinline__ void update(float (&sc)[wg::BK / 2], int k0, const Args& a, int b,
+  __device__ __forceinline__ void update(float (&sc)[NK / 2], int k0, const Args& a, int b,
                                          int t) {
     float mult = a.scale * wg::LOG2E;
-    if (HAS_BIAS || k0 + wg::BK > a.Nk) {        // scale, add the bias, mask keys past Nk
+    if (HAS_BIAS || k0 + NK > a.Nk) {        // scale, add the bias, mask keys past Nk
 #pragma unroll
-      for (int j = 0; j < wg::BK / 8; ++j) {
+      for (int j = 0; j < NK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + j * 8 + 2 * t + e;
@@ -409,7 +336,7 @@ struct Softmax {
     }
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < wg::BK / 8; ++j) {
+    for (int j = 0; j < NK / 8; ++j) {
       mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -424,7 +351,7 @@ struct Softmax {
     m1 = mn1;
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < wg::BK / 8; ++j) {
+    for (int j = 0; j < NK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], mult, -mn0));
@@ -500,7 +427,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    Softmax sm;
+    Softmax<wg::BK> sm;
     float sc[wg::BK / 2];                        // S of the newest tile, then its P in fp32
     uint32_t pa[wg::BK / 16][4];                 // P of the tile whose P.V is in flight
     auto stage_desc = [&](size_t base, int it) {
@@ -592,140 +519,323 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: scalar FMAs in full fp32, logits and accumulator in shared memory.
+// fp32: three TF32 passes on wgmma, fed by TMA from split scratch.
+//
+// The scratch (`fp32_scratch_floats`), written once per call by
+// flash_kernel_tf32_prep: Q [B H][2][Nq][D], K [B H][2][Nk][D] and
+// V^T [B H][2][D][Nk_pad] (part 0 = hi, 1 = lo; Nk_pad = Nk rounded up to
+// 64, the padding zero).  TF32 wgmma takes K-major operands only and TMA
+// cannot transpose fp32, so V is stored transposed, keys contiguous.  Inside
+// every group of 8 keys, V^T position kk holds key perm(kk) = 2 kk (kk < 4),
+// 2 kk - 7 (kk >= 4): the accumulator of S = Q.K^T leaves a thread keys 2t
+// and 2t + 1 of each group of 8, and the TF32 A fragment of P.V asks for
+// k-columns t and t + 4 (sm90.cuh), so with V^T permuted P goes from the S
+// accumulator to the A operand without a shuffle.
 
+namespace tf {
+constexpr int BQ = 128;                          // query rows per block (2 consumers x 64)
+constexpr int BK = 64;                           // keys per tile
+constexpr int THREADS = 384;                     // producer + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;                // arrivals that free a ring stage
+constexpr int PANEL_ROW = 128;                   // bytes of a panel row: 32 fp32, one swizzle span
+constexpr int PREP_THREADS = 256;
+}  // namespace tf
+
+// A tile in shared memory is cut into panels of 32 columns (128-byte rows,
+// the 128-byte swizzle of TMA and of the wgmma descriptors): q and k tiles
+// into D / 32 panels of rows, V^T tiles into BK / 32 panels of D rows.
 template <int D>
-struct SimtLayout {
-  static constexpr int LDT = D + 1;             // Q/K/V tile row stride (floats)
-  static constexpr int LDS = BK + 4;            // logits row stride
-  static constexpr int LDO = D + 4;             // accumulator row stride
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + align128(4 * BQ * LDT);
-  static constexpr size_t v = k + align128(4 * BK * LDT);
-  static constexpr size_t s = v + align128(4 * BK * LDT);
-  static constexpr size_t o = s + align128(4 * BQ * LDS);
-  static constexpr size_t bias = o + align128(4 * BQ * LDO);
-  static constexpr size_t bytes = bias + align128(4 * BK);
+struct TfLayout {
+  static constexpr int PANELS = D / 32;
+  static constexpr int Q_PANEL = tf::BQ * tf::PANEL_ROW;
+  static constexpr int K_PANEL = tf::BK * tf::PANEL_ROW;
+  static constexpr int V_PANELS = tf::BK / 32;
+  static constexpr int V_PANEL = D * tf::PANEL_ROW;
+  static constexpr int Q_BYTES = 2 * PANELS * Q_PANEL;          // hi panels, then lo
+  static constexpr int K_BYTES = 2 * PANELS * K_PANEL;
+  static constexpr int STAGE_BYTES = K_BYTES + 2 * V_PANELS * V_PANEL;
+  static constexpr int STAGES = D == 64 ? 2 : 4;                // 64 KB / 32 KB stages
+  static constexpr size_t q = 0;                                // every panel 1024-byte aligned
+  static constexpr size_t kv = Q_BYTES;
+  static constexpr size_t bars = kv + (size_t)STAGES * STAGE_BYTES;
+  static constexpr size_t bytes = bars + 8 * (1 + 2 * STAGES) + 1024;  // + base alignment
 };
 
-template <int D, bool FUSED, bool HAS_BIAS>
-__global__ void __launch_bounds__(NTHREADS) flash_kernel_simt(const Args a) {
-  using T = float;
-  using L = SimtLayout<D>;
-  constexpr int LDT = L::LDT, LDS = L::LDS, LDO = L::LDO;
-  constexpr int E = D / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::q);
-  T* Ks = reinterpret_cast<T*>(smem + L::k);
-  T* Vs = reinterpret_cast<T*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  float* Os = reinterpret_cast<float*>(smem + L::o);
-  float* Bs = reinterpret_cast<float*>(smem + L::bias);
+__host__ __device__ inline long long padded_keys(int Nk) {
+  return ((long long)Nk + tf::BK - 1) / tf::BK * tf::BK;
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// blockIdx.y: 0 preps and splits q rows, 1 k rows (a warp per PREP_ROWS rows
+// (b, n, h), as the bf16 prep), 2 transposes and splits a 64-key tile of one
+// (b, h) of V through shared memory, keys permuted unless `permute` is 0
+// (a planted fault of the card check).
+template <int D>
+__global__ void __launch_bounds__(tf::PREP_THREADS)
+    flash_kernel_tf32_prep(const Args a, float* __restrict__ scratch, int permute) {
+  constexpr int E = D / 32;
+  const int BH = a.B * a.H;
+  const long long nk_pad = padded_keys(a.Nk);
+  float* qs = scratch;
+  float* ks = qs + (size_t)BH * 2 * a.Nq * D;
+  float* vs = ks + (size_t)BH * 2 * a.Nk * D;
+  if (blockIdx.y < 2) {
+    const bool is_k = blockIdx.y == 1;
+    const int N = is_k ? a.Nk : a.Nq;
+    const long long rows = (long long)BH * N;
+    const int lane = threadIdx.x % 32;
+    const long long row0 =
+        ((long long)blockIdx.x * (tf::PREP_THREADS / 32) + threadIdx.x / 32) * PREP_ROWS;
+    if (row0 >= rows) return;                    // warp-uniform
+    const float* base = static_cast<const float*>(is_k ? a.k : a.q);
+    const long long sb = is_k ? a.k_sb : a.q_sb, sn = is_k ? a.k_sn : a.q_sn;
+    const long long sh = is_k ? a.k_sh : a.q_sh;
+    float x[PREP_ROWS][E];
+    int bs[PREP_ROWS], ns[PREP_ROWS], hs[PREP_ROWS];
+#pragma unroll
+    for (int r = 0; r < PREP_ROWS; ++r) {
+      const long long row = row0 + r;
+      if (row < rows) {
+        hs[r] = (int)(row % a.H);
+        ns[r] = (int)((row / a.H) % N);
+        bs[r] = (int)(row / ((long long)a.H * N));
+        const float* src = base + bs[r] * sb + ns[r] * sn + hs[r] * sh;
+#pragma unroll
+        for (int e = 0; e < E; ++e) x[r][e] = src[e * 32 + lane];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < PREP_ROWS; ++r) {
+      if (row0 + r < rows) {
+        prep_row<D>(x[r], a, bs[r], ns[r], is_k ? a.gk : a.gq, is_k ? a.bk : a.bq);
+      }
+    }
+    float* out = is_k ? ks : qs;
+#pragma unroll
+    for (int r = 0; r < PREP_ROWS; ++r) {
+      if (row0 + r >= rows) break;               // warp-uniform
+      const long long bh = (long long)bs[r] * a.H + hs[r];
+      float* hi = out + ((bh * 2) * N + ns[r]) * D;
+      float* lo = hi + (long long)N * D;
+#pragma unroll
+      for (int e = 0; e < E; ++e) split_tf32(x[r][e], hi[e * 32 + lane], lo[e * 32 + lane]);
+    }
+  } else {
+    __shared__ float tile[tf::BK][D + 1];
+    const long long tiles = nk_pad / tf::BK;
+    const long long tix = blockIdx.x;
+    if (tix >= BH * tiles) return;               // block-uniform
+    const int bh = (int)(tix / tiles);
+    const int k0 = (int)(tix % tiles) * tf::BK;
+    const int b = bh / a.H, h = bh % a.H;
+    const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+    for (int i = threadIdx.x; i < tf::BK * D; i += tf::PREP_THREADS) {
+      const int r = i / D, d = i % D, key = k0 + r;
+      tile[r][d] = key < a.Nk ? vp[key * a.v_sn + d] : 0.f;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < tf::BK * D; i += tf::PREP_THREADS) {
+      const int d = i / tf::BK, p = i % tf::BK, kk = p & 7;
+      const int r = permute ? (p & ~7) | (kk < 4 ? 2 * kk : 2 * kk - 7) : p;
+      float* hi = vs + ((long long)bh * 2 * D + d) * nk_pad + k0 + p;
+      split_tf32(tile[r][d], hi[0], hi[(long long)D * nk_pad]);
+    }
+  }
+}
+
+// A box of a 3-D tensor map at (c0, c1, c2) into shared memory.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_tf32_pv(float (&d)[D / 2], const uint32_t (&a)[4],
+                                              uint64_t db, int acc) {
+  if constexpr (D == 64) {
+    wgmma_tf32_rs_n64(d, a, db, acc);
+  } else {
+    wgmma_tf32_rs_n32(d, a, db, acc);
+  }
+}
+
+// One block per (128-row query tile, b*h): a producer warpgroup whose one
+// thread issues TMA loads of the split scratch (Q hi / lo once; K hi / lo and
+// V^T hi / lo through a ring of 64-key stages, completed on mbarriers), and
+// two consumer warpgroups of 64 query rows each.  Per key tile a consumer
+// issues S = Q.K^T as wgmma.m64n64k8 with both operands in shared memory, in
+// PASSES passes (3: hi.lo + lo.hi + hi.hi, the small terms first; 1 only as a
+// planted fault), runs the online softmax in registers (scale folded into
+// exp2, as the bf16 kernel), splits P into hi / lo in registers and issues
+// O += P.V as wgmma.m64nDk8 with P's register A fragments and V^T's panels,
+// in the same passes, into a fresh accumulator that is then added to O in
+// registers.  setmaxnreg moves registers from the producer (24) to the
+// consumers (240).
+template <int D, bool HAS_BIAS, int PASSES>
+__global__ void __launch_bounds__(tf::THREADS, 1)
+    flash_kernel_tf32(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, const Args a) {
+  using L = TfLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + L::STAGES;
+
   const int bh = blockIdx.y;
   const int b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * BQ;
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const int q0 = blockIdx.x * tf::BQ;
+  const int ntiles = (a.Nk + tf::BK - 1) / tf::BK;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(kv_full + s, 1);
+      mbar_init(kv_empty + s, tf::CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  if (FUSED) {
-    load_tile_prepped<T, D, LDT>(Qs, qp, a.q_sn, q0, a.Nq, a, b, a.gq, a.bq);
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::Q_BYTES);
+      for (int part = 0; part < 2; ++part) {
+        for (int j = 0; j < L::PANELS; ++j) {
+          tma_load_3d(smem + L::q + (part * L::PANELS + j) * L::Q_PANEL, &tq, q_full, 32 * j, q0,
+                      2 * bh + part);
+        }
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % L::STAGES;
+        mbar_wait(kv_empty + s, ((it / L::STAGES) & 1) ^ 1);
+        mbar_expect_tx(kv_full + s, L::STAGE_BYTES);
+        unsigned char* st = smem + L::kv + s * L::STAGE_BYTES;
+        for (int part = 0; part < 2; ++part) {
+          for (int j = 0; j < L::PANELS; ++j) {
+            tma_load_3d(st + (part * L::PANELS + j) * L::K_PANEL, &tk, kv_full + s, 32 * j,
+                        it * tf::BK, 2 * bh + part);
+          }
+          for (int j = 0; j < L::V_PANELS; ++j) {
+            tma_load_3d(st + L::K_BYTES + (part * L::V_PANELS + j) * L::V_PANEL, &tv,
+                        kv_full + s, it * tf::BK + 32 * j, 0, 2 * bh + part);
+          }
+        }
+      }
+    }
   } else {
-    load_tile<T, D, LDT>(Qs, qp, a.q_sn, q0, a.Nq);
-  }
+    // consumer warpgroups: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int half = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    // K-major panels, 8-row groups 1024 bytes apart, 128-byte swizzle; a k8
+    // step is 32 bytes along the row (2 in descriptor units)
+    auto desc = [&](const unsigned char* p) {
+      return smem_desc(p, 16, 8 * tf::PANEL_ROW, 1);
+    };
+    // pass p of PASSES: the parts (0 = hi, 1 = lo) of its A and B operands;
+    // three passes are hi.lo, lo.hi, hi.hi, one pass hi.hi
+    auto a_part = [](int p) { return PASSES == 3 && p == 1 ? 1 : 0; };
+    auto b_part = [](int p) { return PASSES == 3 && p == 0 ? 1 : 0; };
 
-  float m_row[ROWS], l_row[ROWS];                // identical in every lane of the warp
+    // o accumulates over the key tiles in registers, rounded to nearest; pv
+    // is one tile's P.V from the tensor cores, whose fp32 sums may truncate
+    // (across every key of a long row that bias would add up)
+    float o[D / 2], pv[D / 2];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m_row[i] = NEG_INF;
-    l_row[i] = 0.f;
-    float* orow = Os + (warp * ROWS + i) * LDO;
-#pragma unroll
-    for (int e = 0; e < E; ++e) orow[e * 32 + lane] = 0.f;
-  }
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    Softmax<tf::BK> sm;
+    float sc[tf::BK / 2];
+    uint32_t ph[tf::BK / 8][4], pl[tf::BK / 8][4];
 
-  for (int k0 = 0; k0 < a.Nk; k0 += BK) {
-    __syncthreads();                             // every warp is done with the last tile
-    load_kv_tile<T, D, LDT, FUSED, HAS_BIAS>(Ks, Vs, Bs, kp, vp, k0, a, b);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows; lanes own keys lane and lane + 32.
-    float acc[ROWS][2];
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % L::STAGES;
+      mbar_wait(kv_full + s, (it / L::STAGES) & 1);
+      const unsigned char* st = smem + L::kv + s * L::STAGE_BYTES;
+      fence_regs(sc);
+      wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) acc[i][0] = acc[i][1] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float k_lo = Ks[lane * LDT + d];
-      const float k_hi = Ks[(lane + 32) * LDT + d];
+      for (int p = 0; p < PASSES; ++p) {
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float qv = Qs[(warp * ROWS + i) * LDT + d];
-        acc[i][0] = fmaf(qv, k_lo, acc[i][0]);
-        acc[i][1] = fmaf(qv, k_hi, acc[i][1]);
+        for (int kc = 0; kc < D / 8; ++kc) {
+          const int j = kc / 4, off = 2 * (kc % 4);
+          const uint64_t da =
+              desc(smem + L::q + (a_part(p) * L::PANELS + j) * L::Q_PANEL + half * 64 * tf::PANEL_ROW);
+          const uint64_t db = desc(st + (b_part(p) * L::PANELS + j) * L::K_PANEL);
+          wgmma_tf32_ss_n64(sc, da + off, db + off, p > 0 || kc > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      sm.update<HAS_BIAS>(sc, it * tf::BK, a, b, t);
+      // P of key group c as the A fragment: k-column t <- key 2t, t + 4 <- key 2t + 1
+#pragma unroll
+      for (int c = 0; c < tf::BK / 8; ++c) {
+        const float pf[4] = {sc[4 * c], sc[4 * c + 2], sc[4 * c + 1], sc[4 * c + 3]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float hi, lo;
+          split_tf32(pf[i], hi, lo);
+          ph[c][i] = __float_as_uint(hi);
+          pl[c][i] = __float_as_uint(lo);
+        }
+      }
+      fence_regs(pv);
+      fence_regs(ph);
+      fence_regs(pl);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p) {
+#pragma unroll
+        for (int c = 0; c < tf::BK / 8; ++c) {
+          const int j = c / 4, off = 2 * (c % 4);
+          const uint64_t dv =
+              desc(st + L::K_BYTES + (b_part(p) * L::V_PANELS + j) * L::V_PANEL) + off;
+          wgmma_tf32_pv<D>(pv, a_part(p) ? pl[c] : ph[c], dv, p > 0 || c > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pv);
+      fence_regs(ph);
+      fence_regs(pl);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty + s);
+      // o = o * alpha + this tile's P.V, rounded once per element in fp32
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        o[4 * dn + 0] = fmaf(o[4 * dn + 0], sm.al0, pv[4 * dn + 0]);
+        o[4 * dn + 1] = fmaf(o[4 * dn + 1], sm.al0, pv[4 * dn + 1]);
+        o[4 * dn + 2] = fmaf(o[4 * dn + 2], sm.al1, pv[4 * dn + 2]);
+        o[4 * dn + 3] = fmaf(o[4 * dn + 3], sm.al1, pv[4 * dn + 3]);
       }
     }
-
-    // Online softmax, row by row.
+    float l0 = sm.l0, l1 = sm.l1;
+    l0 += __shfl_xor_sync(FULL, l0, 1);
+    l0 += __shfl_xor_sync(FULL, l0, 2);
+    l1 += __shfl_xor_sync(FULL, l1, 1);
+    l1 += __shfl_xor_sync(FULL, l1, 2);
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    const int n0 = q0 + half * 64 + warp * 16 + g, n1 = n0 + 8;
+    float* op = static_cast<float*>(a.o);
+    float2* out0 = reinterpret_cast<float2*>(op + (((long long)b * a.Nq + n0) * a.H + h) * D);
+    float2* out1 = reinterpret_cast<float2*>(op + (((long long)b * a.Nq + n1) * a.H + h) * D);
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int r = warp * ROWS + i;
-      float s0 = acc[i][0] * a.scale;
-      float s1 = acc[i][1] * a.scale;
-      if (HAS_BIAS) {
-        s0 += Bs[lane];
-        s1 += Bs[lane + 32];
-      }
-      if (k0 + lane >= a.Nk) s0 = NEG_INF;
-      if (k0 + lane + 32 >= a.Nk) s1 = NEG_INF;
-      const float m_new = fmaxf(m_row[i], warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      const float alpha = expf(m_row[i] - m_new);
-      l_row[i] = l_row[i] * alpha + warp_sum(p0 + p1);
-      m_row[i] = m_new;
-      Ss[r * LDS + lane] = p0;
-      Ss[r * LDS + lane + 32] = p1;
-      float* orow = Os + r * LDO;
-#pragma unroll
-      for (int e = 0; e < E; ++e) orow[e * 32 + lane] *= alpha;
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int c = (dn * 8 + 2 * t) / 2;
+      if (n0 < a.Nq) out0[c] = make_float2(o[4 * dn + 0] / d0, o[4 * dn + 1] / d0);
+      if (n1 < a.Nq) out1[c] = make_float2(o[4 * dn + 2] / d1, o[4 * dn + 3] / d1);
     }
-    __syncwarp();
-
-    // O += P V; lanes own output columns lane (and lane + 32).
-    float pv[ROWS][E];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int e = 0; e < E; ++e) pv[i][e] = 0.f;
-    for (int j = 0; j < BK; ++j) {
-      float vv[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) vv[e] = Vs[j * LDT + e * 32 + lane];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float p = Ss[(warp * ROWS + i) * LDS + j];
-#pragma unroll
-        for (int e = 0; e < E; ++e) pv[i][e] = fmaf(p, vv[e], pv[i][e]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int e = 0; e < E; ++e) Os[(warp * ROWS + i) * LDO + e * 32 + lane] += pv[i][e];
-    __syncwarp();
-  }
-
-  T* op = static_cast<T*>(a.o);
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int r = warp * ROWS + i;
-    const int n = q0 + r;
-    if (n >= a.Nq) continue;                     // warp-uniform
-    const float denom = fmaxf(l_row[i], 1e-30f);
-    T* orow = op + (((long long)b * a.Nq + n) * a.H + h) * D;
-#pragma unroll
-    for (int e = 0; e < E; ++e) orow[e * 32 + lane] = Os[r * LDO + e * 32 + lane] / denom;
   }
 }
 
@@ -767,27 +877,73 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D, bool FUSED, bool HAS_BIAS>
-cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
-  auto kern = flash_kernel_simt<D, FUSED, HAS_BIAS>;
-  const size_t bytes = SimtLayout<D>::bytes;
+// The split scratch as a 3-D fp32 tensor map (inner, rows, planes), planes
+// (b h, part) of rows x inner floats; boxes of 32 x box_rows in the 128-byte
+// swizzle, zero-filled past `rows`.
+bool make_split_map(CUtensorMap* map, const float* base, int inner, int rows, int planes,
+                    int box_rows) {
+  EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 4, (cuuint64_t)inner * rows * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+long long fp32_scratch_floats(int B, int H, int Nq, int Nk, int D) {
+  return 2LL * B * H * D * ((long long)Nq + Nk + padded_keys(Nk));
+}
+
+template <int D, bool HAS_BIAS, int PASSES>
+cudaError_t launch_tf32(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                        const Args& a, cudaStream_t stream) {
+  auto kern = flash_kernel_tf32<D, HAS_BIAS, PASSES>;
+  const size_t bytes = TfLayout<D>::bytes;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Nq + BQ - 1) / BQ, a.B * a.H);
-  kern<<<grid, NTHREADS, bytes, stream>>>(a);
+  const dim3 grid((a.Nq + tf::BQ - 1) / tf::BQ, a.B * a.H);
+  kern<<<grid, tf::THREADS, bytes, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
-// fp32: the scalar kernel, with the q/k prep of each tile inside when fused.
+// fp32: the prep kernel splits q / k (after the q/k prep when fused) and V^T
+// into the scratch, which the TF32 wgmma kernel then attends over.  fault:
+// bit 0 one TF32 pass, bit 1 V^T without the key permutation (planted
+// faults of the card check; 0 on every call of the port).
 template <int D>
-cudaError_t run_fp32(const Args& a, bool fused, bool has_bias, cudaStream_t stream) {
-  if (fused) {
-    return has_bias ? launch_simt<D, true, true>(a, stream)
-                    : launch_simt<D, true, false>(a, stream);
+cudaError_t run_fp32(const Args& a, float* scratch, int fault, cudaStream_t stream) {
+  const long long BH = (long long)a.B * a.H;
+  const long long rows_per_block = (tf::PREP_THREADS / 32) * PREP_ROWS;
+  const long long nq = a.Nq > a.Nk ? a.Nq : a.Nk;
+  long long blocks = (BH * nq + rows_per_block - 1) / rows_per_block;
+  const long long vtiles = BH * (padded_keys(a.Nk) / tf::BK);
+  if (vtiles > blocks) blocks = vtiles;
+  if (blocks > 0x7fffffffLL || 2 * BH > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_kernel_tf32_prep<D><<<dim3((unsigned)blocks, 3), tf::PREP_THREADS, 0, stream>>>(
+      a, scratch, (fault & 2) ? 0 : 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float* qs = scratch;
+  const float* ks = qs + BH * 2 * a.Nq * D;
+  const float* vs = ks + BH * 2 * a.Nk * D;
+  CUtensorMap tq, tk, tv;
+  if (!make_split_map(&tq, qs, D, a.Nq, (int)(2 * BH), tf::BQ) ||
+      !make_split_map(&tk, ks, D, a.Nk, (int)(2 * BH), tf::BK) ||
+      !make_split_map(&tv, vs, (int)padded_keys(a.Nk), D, (int)(2 * BH), D)) {
+    return cudaErrorInvalidValue;
   }
-  return has_bias ? launch_simt<D, false, true>(a, stream)
-                  : launch_simt<D, false, false>(a, stream);
+  const bool bias = a.key_bias != nullptr;
+  if (fault & 1) {
+    return bias ? launch_tf32<D, true, 1>(tq, tk, tv, a, stream)
+                : launch_tf32<D, false, 1>(tq, tk, tv, a, stream);
+  }
+  return bias ? launch_tf32<D, true, 3>(tq, tk, tv, a, stream)
+              : launch_tf32<D, false, 3>(tq, tk, tv, a, stream);
 }
 
 // bf16: when fused, the prep kernel writes prepped q / k to the scratch, which the
@@ -817,9 +973,18 @@ cudaError_t run_bf16(const Args& a, bool fused, bool has_bias, void* q_prep, voi
 
 extern "C" {
 
+// Floats of the scratch the fp32 path takes (q_prep): the TF32 split of q, k
+// and V^T.
+long long iggt_flash_fp32_scratch_floats(int B, int H, int Nq, int Nk, int head_dim) {
+  return fp32_scratch_floats(B, H, Nq, Nk, head_dim);
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  bf16 with use_norm or
 // use_rope preps q and k into q_prep / k_prep (contiguous (B, Nq, H, D) and
-// (B, Nk, H, D) scratch) first.  Returns a cudaError_t (0 on success).
+// (B, Nk, H, D) scratch) first; fp32 always splits q, k and V^T into q_prep
+// (iggt_flash_fp32_scratch_floats floats, 16-byte aligned; k_prep unused).
+// fault (fp32 only, 0 on every call of the port): bit 0 one TF32 pass, bit 1
+// V^T without the key permutation.  Returns a cudaError_t (0 on success).
 int iggt_flash_attention(
     int dtype, int head_dim, int use_norm, int use_rope,
     const void* q, const void* k, const void* v, void* o,
@@ -831,12 +996,15 @@ int iggt_flash_attention(
     long long q_sb, long long q_sn, long long q_sh,
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh,
-    float scale, float eps, void* stream) {
+    float scale, float eps, int fault, void* stream) {
   if (Nq <= 0 || Nk <= 0 || B <= 0 || H <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
   if (use_norm && !(gq && bq && gk && bk)) return (int)cudaErrorInvalidValue;
   if (use_rope && !(rope_cos && rope_sin)) return (int)cudaErrorInvalidValue;
   const bool fused = use_norm || use_rope;
-  if (dtype == 1 && fused && !(q_prep && k_prep)) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && (fault || (fused && !(q_prep && k_prep)))) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && (!q_prep || (reinterpret_cast<uintptr_t>(q_prep) & 15) || (fault & ~3))) {
+    return (int)cudaErrorInvalidValue;
+  }
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.key_bias = key_bias;
@@ -853,8 +1021,8 @@ int iggt_flash_attention(
   if (head_dim != 32 && head_dim != 64) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
-    err = head_dim == 32 ? run_fp32<32>(a, fused, has_bias, s)
-                         : run_fp32<64>(a, fused, has_bias, s);
+    float* split = static_cast<float*>(q_prep);
+    err = head_dim == 32 ? run_fp32<32>(a, split, fault, s) : run_fp32<64>(a, split, fault, s);
   } else if (dtype == 1) {
     err = head_dim == 32 ? run_bf16<32>(a, fused, has_bias, q_prep, k_prep, s)
                          : run_bf16<64>(a, fused, has_bias, q_prep, k_prep, s);

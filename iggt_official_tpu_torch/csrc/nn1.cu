@@ -150,12 +150,6 @@ __device__ __forceinline__ float norm2(float4 a, float4 b) {
   return __fmaf_rn(b.w, b.w, s);
 }
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t h;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
-  return h;
-}
-
 namespace fl {
 constexpr int BM = 256;                          // query rows per block
 constexpr int BN = 64;                           // references per wgmma (one sub-tile)
@@ -165,7 +159,7 @@ constexpr int PAIRS = BN / 4;                    // pairs per row and thread in 
 constexpr int STAGE_N = 256;                     // references per ring stage; R is padded to it
 constexpr int SUBS = STAGE_N / BN;
 constexpr int STAGES = 4;
-constexpr int THREADS = 288;                     // 2 consumer warpgroups + a producer warp
+constexpr int THREADS = 384;                     // a producer and 2 consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;                // arrivals that free a ring stage
 constexpr int ROW_BYTES = D * 4;                 // one 32-byte swizzle span
 constexpr int TILE_BYTES = STAGE_N * ROW_BYTES;  // hi or lo of a stage
@@ -191,42 +185,44 @@ struct FilterArgs {
   float ku, onepcu, floor_abs;   // kappa u, 1 + c u, F
 };
 
-// One reference per thread: the TF32 split, |r|^2 and the running max |r|^2.
-// R_pad is a multiple of the block size, so every lane of a warp is live.
+// One output row per thread: the TF32 split of a reference, |r|^2 and the
+// running max |r|^2.  Output row i holds reference (i / nb_pad) nb + i % nb_pad
+// when i % nb_pad < nb and that index is below R, else padding (zero row,
+// |r|^2 = +inf).  nn1 takes nb = nb_pad = rows (row i is reference i); the
+// bucket kernel's layout puts bucket b of chunk j at row j nb_pad + b.
 constexpr int SPLIT_THREADS = 256;
 
 __global__ void __launch_bounds__(SPLIT_THREADS)
 nn1_split_kernel(const float* __restrict__ ref, float* __restrict__ hi, float* __restrict__ lo,
-                 float* __restrict__ r2, unsigned* __restrict__ max_r2, int R) {
+                 float* __restrict__ r2, unsigned* __restrict__ max_r2, int R, int nb, int nb_pad,
+                 int rows) {
   const int i = blockIdx.x * SPLIT_THREADS + threadIdx.x;
-  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+  const int b = i % nb_pad;
+  const long long src = (long long)(i / nb_pad) * nb + b;
+  const bool real = i < rows && b < nb && src < R;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
   float n2 = INFINITY;
-  if (i < R) {
-    const float4* p = reinterpret_cast<const float4*>(ref + (long long)i * D);
+  if (real) {
+    const float4* p = reinterpret_cast<const float4*>(ref + src * D);
     a = p[0];
-    b = p[1];
-    n2 = norm2(a, b);
+    c = p[1];
+    n2 = norm2(a, c);
   }
-  const float x[D] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const float x[D] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
   float h[D], l[D];
 #pragma unroll
-  for (int k = 0; k < D; ++k) {
-    // hi + lo == r exactly (the recheck rebuilds r from them); a value whose
-    // rounding is not finite keeps hi = r, lo = 0
-    h[k] = __uint_as_float(tf32_rna(x[k]));
-    const bool fin = isfinite(h[k]);
-    h[k] = fin ? h[k] : x[k];
-    l[k] = fin ? __fsub_rn(x[k], h[k]) : 0.f;
+  for (int k = 0; k < D; ++k) split_tf32(x[k], h[k], l[k]);  // hi + lo == r (the recheck rebuilds r)
+  if (i < rows) {
+    float4* ph = reinterpret_cast<float4*>(hi + (long long)i * D);
+    float4* pl = reinterpret_cast<float4*>(lo + (long long)i * D);
+    ph[0] = make_float4(h[0], h[1], h[2], h[3]);
+    ph[1] = make_float4(h[4], h[5], h[6], h[7]);
+    pl[0] = make_float4(l[0], l[1], l[2], l[3]);
+    pl[1] = make_float4(l[4], l[5], l[6], l[7]);
+    r2[i] = n2;
   }
-  float4* ph = reinterpret_cast<float4*>(hi + (long long)i * D);
-  float4* pl = reinterpret_cast<float4*>(lo + (long long)i * D);
-  ph[0] = make_float4(h[0], h[1], h[2], h[3]);
-  ph[1] = make_float4(h[4], h[5], h[6], h[7]);
-  pl[0] = make_float4(l[0], l[1], l[2], l[3]);
-  pl[1] = make_float4(l[4], l[5], l[6], l[7]);
-  r2[i] = n2;
   // as unsigned bits: non-negative floats order alike, and NaN lies above +inf
-  const unsigned m = __reduce_max_sync(FULL, i < R ? __float_as_uint(n2) : 0u);
+  const unsigned m = __reduce_max_sync(FULL, real ? __float_as_uint(n2) : 0u);
   if ((threadIdx.x & 31) == 0 && m != 0u) atomicMax(max_r2, m);
 }
 
@@ -257,26 +253,6 @@ __device__ __forceinline__ void load_stage(unsigned char* slot, uint64_t* bar,
       "l"(reinterpret_cast<uint64_t>(tlo)), "r"(smem_u32(slot + fl::R2_OFF)),
       "l"(reinterpret_cast<uint64_t>(r2 + row)), "r"(fl::STAGE_N * 4)
       : "memory");
-}
-
-// D (64 x 64, fp32 registers) (+)= A (64 x 8, tf32 registers) . B^T (8 x 64,
-// shared, K-major).  A per warp w: a0 = (16w + g, t), a1 = (16w + g + 8, t),
-// a2 = (16w + g, t + 4), a3 = (16w + g + 8, t + 4), with g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
-                                           int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 // 1 if any pair of a row's 16 passes, else 0: per pair a~ = fma(-2, dot, |r|^2)
@@ -428,11 +404,11 @@ __global__ void __launch_bounds__(fl::THREADS, 1)
       fence_regs(acc);
       wgmma_fence();
       if constexpr (PASSES == 3) {
-        wgmma_tf32(acc, ahi[mt], dlo, 0);
-        wgmma_tf32(acc, alo[mt], dhi, 1);
-        wgmma_tf32(acc, ahi[mt], dhi, 1);
+        wgmma_tf32_rs_n64(acc, ahi[mt], dlo, 0);
+        wgmma_tf32_rs_n64(acc, alo[mt], dhi, 1);
+        wgmma_tf32_rs_n64(acc, ahi[mt], dhi, 1);
       } else {
-        wgmma_tf32(acc, ahi[mt], dhi, 0);
+        wgmma_tf32_rs_n64(acc, ahi[mt], dhi, 0);
       }
       wgmma_commit();
     };
@@ -606,75 +582,370 @@ __global__ void __launch_bounds__(fl::THREADS, 1)
 // Per-bucket nearest references: for every query q and bucket b < nb, the
 // least d2(q, r) over the references r = b, b + nb, b + 2 nb, ... (bucket of a
 // reference = its index mod nb) and the smallest such r attaining it, with
-// d2 the same exact fp32 chain as nn1's recheck.  The exact top-k over the nb
-// bucket minima is taken outside the kernel (`ops/nn1.py::bucket_topk`), as
-// the JAX package takes it outside its Pallas call.  No module calls it (as
-// in the JAX package); it is a candidate for the clustering's core kNN.
+// d2 the exact fp32 chain of nn1.  An empty bucket (b >= R) holds +inf and
+// index b.  The exact top-k over the nb bucket minima is taken outside the
+// kernel (`ops/nn1.py::bucket_topk`), as the JAX package takes it outside its
+// Pallas call.  No module calls it (as in the JAX package); it is a candidate
+// for the clustering's core kNN.
 //
-// What bounds it: the same 3 * Q * R * 8 fp32 operations as nn1 (5.4e11 at
-// Q = R = 150,000: 8.06 ms at 67 TFLOP/s, 16.1 ms of no-FMA instructions);
-// the (Q, nb) minima it writes (1.8 GB with their int64 indices at nb = 1024)
-// take ~0.55 ms at 3.35 TB/s.
+// Why the exact chain alone is slow: 24 instructions per pair on every pair,
+// 16.1 ms of issue at Q = R = 150,000.
 //
-// Design: one thread per (query, bucket).  A block of 256 threads holds 256
-// adjacent buckets and BQ = 16 queries, staged in shared memory and read as
-// broadcasts; each thread walks its bucket's references in ascending index
-// (about R / nb = 147 rows), two 16-byte loads per row, adjacent threads on
-// adjacent rows (coalesced, and the 4.8 MB reference set stays in L2), and
-// keeps BQ running (min, argmin) pairs in registers with a strict `<`, so a
-// tie goes to the smallest index in the bucket with no merge between threads.
-// An empty bucket (b >= R) keeps +inf and index b, as the Pallas kernel does.
-constexpr int BT_THREADS = 256;
-constexpr int BT_BQ = 16;
+// Design: nn1's filter, per bucket, in two passes over the references.
+// nn1_split_kernel lays the split references out by bucket: row j nb_pad + b
+// holds reference j nb + b (nb_pad = nb rounded up to 64; the padding rows
+// are zero with |r|^2 = +inf), so the 64 rows j nb_pad + b0 ... + 63 are
+// chunk j of 64 buckets, and every such row exists.  bucket_filter_kernel
+// takes one block per (192 query rows, 64-bucket group b0): a producer
+// warpgroup whose one thread streams the chunks j = 0, 1, ... twice (4 a
+// stage: hi and lo as one box of a 3-D tensor map (8, nb_pad, J) in the
+// 32-byte swizzle, |r|^2 as a box of a 2-D map (nb_pad, J)) through a ring of
+// mbarrier stages, and three consumer warpgroups of 64 query rows, whose hi /
+// lo split is the register A operand of wgmma.m64n128k8.f32.tf32 (hi.lo +
+// lo.hi + hi.hi) over two chunks at a time.  The accumulator fragment holds
+// the same (query, bucket) pairs for every chunk, 32 per thread and chunk.
+//   Pass 1: per pair the least a~ = |r|^2 - 2 q.r over its bucket, a1 (an
+//   FFMA and a min per pair and chunk).  Then per pair, with nn1's window
+//   (`ops/nn1.py::filter_constants`): bound = |q|^2 + a1 + A_q is at least
+//   the chain of the reference that gave a1, so the answer's chain is at most
+//   bound, and the answer has a~ <= thr = T - |q|^2, T = bound (1 + c u) +
+//   A_q (every step rounded up).
+//   Pass 2: the same products; each pair with a~ <= thr (NaN passes) gets the
+//   exact chain, nn1's recheck loop (a pair per lane and step, the reference
+//   rebuilt as hi + lo from shared memory), and keeps the least (chain,
+//   chunk) key in shared memory: the chunks ascend, so a tie goes to the
+//   smallest index.  Rows on the exact path (A_q = +inf: |q|^2 or max |r|^2
+//   above 2^60 or not finite) recheck every pair.  The keys then go out by
+//   rows, a row's 64 buckets from adjacent threads.
+// Rechecks per (query, bucket) are the references inside the final window:
+// 1 where the least approximation is alone there, more on near ties (the
+// clustering's smoothed features).
+//
+// Why this shape (variants timed on the card, PERF.md): the consumers'
+// epilogues are latency-bound (a clock64 split of a warp's time showed the
+// wgmma waits small beside the pass-2 rechecks, the pass-2 filter and pass
+// 1), so more warps pay more than groups in flight.  Three warpgroups with
+// one m64n128 group each read faster than two with two groups each
+// (m64n128 or m64n64) or three with two m64n64 groups; four did not launch
+// at 120 registers.  A warp-wide queue of the pass-2 candidates, one chain
+// per lane, and two candidates per lane and step read slower than the
+// per-lane loop; more ring stages read the same.  Slower too: one pass
+// that kept the least and second-least a~ and walked the whole bucket
+// exactly where the second lay inside the window (62.3 ms on the smoothed
+// subsample, scripts/bucket_ab.py, where 55% of the pairs walk), and nn1's
+// rule as the chunks stream (5.6 rechecks per pair).
+//
+// What bounds it (Q = R = 150,000, nb = 1024): one TF32 pass over every
+// pair's dot product, 2 Q R 8 = 3.6e11 operations, 0.73 ms at 495 TF/s
+// (three passes 2.18 ms, and this design runs them twice); writing the (Q,
+// nb) minima and int64 indices, 1.84 GB, 0.55 ms at 3.35 TB/s.
 
-__global__ void __launch_bounds__(BT_THREADS)
-bucket_min_kernel(const float* __restrict__ query, const float* __restrict__ ref,
-                  float* __restrict__ out_d, long long* __restrict__ out_i,
-                  long long Q, long long R, int nb) {
-  __shared__ float4 qs[BT_BQ][2];
-  const long long q0 = (long long)blockIdx.y * BT_BQ;
-  const int b = blockIdx.x * BT_THREADS + threadIdx.x;
-  if (threadIdx.x < 2 * BT_BQ) {
-    const int j = threadIdx.x >> 1, h = threadIdx.x & 1;
-    qs[j][h] = q0 + j < Q ? reinterpret_cast<const float4*>(query + (q0 + j) * D)[h]
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
+namespace bk {
+constexpr int NWG = 3;                           // consumer warpgroups, 64 query rows each
+constexpr int BM = 64 * NWG;                     // query rows per block
+constexpr int BN = 64;                           // buckets per block (one chunk is 64 rows)
+constexpr int ITEM = 2;                          // chunks per wgmma group (m64n128k8)
+constexpr int CH = 4;                            // chunks per ring stage
+constexpr int PER_STAGE = CH / ITEM;             // items per stage
+constexpr int STAGES = 4;
+constexpr int THREADS = 128 * (NWG + 1);         // a producer and the consumer warpgroups
+constexpr int CONSUMER_WARPS = 4 * NWG;
+constexpr int REG_PRODUCER = 24;                 // setmaxnreg: 128 x 24 + 384 x 160 <= 65536
+constexpr int REG_CONSUMER = 160;
+constexpr int ROW_BYTES = D * 4;                 // one 32-byte swizzle span
+constexpr int CHUNK_BYTES = BN * ROW_BYTES;      // hi or lo of a chunk
+constexpr int LO_OFF = CH * CHUNK_BYTES;
+constexpr int R2_OFF = 2 * CH * CHUNK_BYTES;
+constexpr int STAGE_TX = 2 * CH * CHUNK_BYTES + CH * BN * 4;
+constexpr int STAGE_STRIDE = 17 * 1024;          // = STAGE_TX, 1024-byte aligned
+constexpr size_t QROWS = (size_t)STAGES * STAGE_STRIDE;  // the block's fp32 query rows
+constexpr size_t KEYS = QROWS + BM * ROW_BYTES;          // per pair its least (chain, chunk)
+constexpr size_t BARS = KEYS + (size_t)BM * BN * 8;
+constexpr size_t SMEM = BARS + 16 * STAGES + 1024;       // + base alignment
+static_assert(STAGE_TX <= STAGE_STRIDE, "a stage fits its slot");
+static_assert(CH % ITEM == 0, "a stage holds whole items");
+static_assert(SMEM <= 232448, "shared memory of one block");
+}  // namespace bk
+
+struct BucketArgs {
+  const float* query;            // (Q, 8)
+  const unsigned* max_r2;        // bits of max |r|^2 over the R references
+  float* out_d;                  // (Q, nb)
+  long long* out_i;              // (Q, nb)
+  unsigned long long* rechecks;  // exact chains computed, or null
+  long long Q;
+  int R, nb;
+  float ku, onepcu, floor_abs;   // kappa u, 1 + c u, F
+};
+
+// The loads of ring stage k: CH chunks of hi, lo (3-D boxes) and |r|^2 (a 2-D
+// box) at bucket b0, chunks k CH ..., completed on `bar`.
+__device__ __forceinline__ void load_bucket_stage(unsigned char* slot, uint64_t* bar,
+                                                  const CUtensorMap* thi, const CUtensorMap* tlo,
+                                                  const CUtensorMap* tr2, int b0, int k) {
+  mbar_expect_tx(bar, bk::STAGE_TX);
+  const int j0 = k * bk::CH;
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%6], [%7, {%3, %4, %5}], [%2];\n"
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%8], [%9, {%4, %5}], [%2];\n" ::"r"(smem_u32(slot)),
+      "l"(reinterpret_cast<uint64_t>(thi)), "r"(smem_u32(bar)), "r"(0), "r"(b0), "r"(j0),
+      "r"(smem_u32(slot + bk::LO_OFF)), "l"(reinterpret_cast<uint64_t>(tlo)),
+      "r"(smem_u32(slot + bk::R2_OFF)), "l"(reinterpret_cast<uint64_t>(tr2))
+      : "memory");
+}
+
+// A recheck's key, ordered as the answer is: the least chain (as bits:
+// non-negative floats order alike, and NaN lies above +inf, so it never
+// wins), then the least chunk, i.e. the smallest index in the bucket.
+__device__ __forceinline__ unsigned long long best_key(float d, int j) {
+  return (unsigned long long)__float_as_uint(d) << 32 | (unsigned)j;
+}
+constexpr unsigned long long NO_KEY = 0x7f800000ffffffffULL;   // +inf, no reference
+
+// Pair p of a thread (0..31) in a chunk: row half p / 16 (rows g, g + 8),
+// column 8 (p / 2 % 8) + 2t + p % 2 of the chunk; accumulator element
+// 4 (p / 2 % 8) + 2 (p / 16) + p % 2, plus 32 for the item's second chunk.
+__device__ __forceinline__ int pair_acc(int p) { return 4 * ((p >> 1) & 7) + 2 * (p >> 4) + (p & 1); }
+__device__ __forceinline__ int pair_col(int p, int t) { return 8 * ((p >> 1) & 7) + 2 * t + (p & 1); }
+
+// A consumer warpgroup: 64 query rows (one m64 tile) against the block's 64
+// buckets, both passes, two chunks (an "item") per wgmma group.
+template <int PASSES>
+__device__ __forceinline__ void bucket_consumer(const BucketArgs& a, unsigned char* smem,
+                                                uint64_t* full, uint64_t* empty, int b0,
+                                                int nchunks) {
+  float4* qrows = reinterpret_cast<float4*>(smem + bk::QROWS);
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + bk::KEYS);
+  const int wgi = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const long long row0 = (long long)blockIdx.x * bk::BM;
+  auto local_row = [&](int hr) { return wgi * 64 + warp * 16 + 8 * hr + g; };
+  auto key_slot = [&](int p) { return keys + (wgi * 32 + p) * 128 + tid; };
+
+  const float max_r2 = __uint_as_float(*a.max_r2);
+  const bool all_exact = !(max_r2 <= 0x1p60f);
+  uint32_t ahi[4], alo[4];
+  float2 rowc[2];                                  // (A_q, |q|^2) of rows g, g + 8
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int lr = local_row(hr);
+    const long long row = row0 + lr;
+    float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
+    if (row < a.Q) {
+      const float4* p = reinterpret_cast<const float4*>(a.query + row * D);
+      x0 = p[0];
+      x1 = p[1];
+    }
+    const float q2 = norm2(x0, x1);
+    const bool exact = all_exact || !(q2 <= 0x1p60f);
+    const float aq = exact ? INFINITY
+                           : __fadd_ru(__fmul_ru(a.ku, __fadd_ru(q2, max_r2)), a.floor_abs);
+    rowc[hr] = make_float2(aq, exact ? 0.f : q2);
+    if (t == 0) {
+      qrows[2 * lr] = x0;
+      qrows[2 * lr + 1] = x1;
+    }
+    // this row's A elements: columns t (a0 / a1) and t + 4 (a2 / a3)
+    float h, l;
+    split_tf32(pick(x0, t), h, l);
+    ahi[hr] = __float_as_uint(h);
+    alo[hr] = __float_as_uint(l);
+    split_tf32(pick(x1, t), h, l);
+    ahi[2 + hr] = __float_as_uint(h);
+    alo[2 + hr] = __float_as_uint(l);
+  }
+#pragma unroll
+  for (int p = 0; p < 32; ++p) *key_slot(p) = NO_KEY;
+  __syncwarp();
+
+  // Per pair: a1 through pass 1, then the threshold thr of pass 2 (-inf for a
+  // row past Q or a bucket past nb).
+  float lim[32];
+#pragma unroll
+  for (int p = 0; p < 32; ++p) lim[p] = INFINITY;
+  unsigned nre = 0;                                // exact chains computed
+
+  // Item i of 2 nitems: pass i / nitems, chunks 2k and 2k + 1 (k = i mod
+  // nitems; the second exists if 2k + 1 < nchunks), in ring stage
+  // (pass ? nst : 0) + k / 2.
+  const int nitems = (nchunks + bk::ITEM - 1) / bk::ITEM;
+  const int nst = (nchunks + bk::CH - 1) / bk::CH;
+  auto item_of = [&](int i) { return i < nitems ? i : i - nitems; };
+  auto stage_of = [&](int i) { return (i < nitems ? 0 : nst) + item_of(i) / bk::PER_STAGE; };
+  auto slot_of = [&](int i) { return smem + (size_t)(stage_of(i) % bk::STAGES) * bk::STAGE_STRIDE; };
+  auto first_chunk_at = [&](int i) { return (item_of(i) % bk::PER_STAGE) * bk::ITEM; };
+  // a~ = |r|^2 - 2 q.r of pair p in chunk c of the item (padding rows have
+  // |r|^2 = +inf: a~ = +inf)
+  auto approx = [&](const float (&acc)[64], const float* r2s, int c, int p) {
+    const float r2 = r2s[c * bk::BN + pair_col(p, t)];
+    return __fmaf_rn(-2.f, acc[32 * c + pair_acc(p)], r2);
+  };
+  auto set_thresholds = [&]() {
+#pragma unroll
+    for (int p = 0; p < 32; ++p) {
+      const float2 c = rowc[p >> 4];
+      const bool live = row0 + local_row(p >> 4) < a.Q && b0 + pair_col(p, t) < a.nb;
+      const float bound = __fadd_ru(__fadd_ru(c.y, lim[p]), c.x);
+      lim[p] = live ? row_threshold(bound, c, a.onepcu) : -INFINITY;
+    }
+  };
+  auto epilogue = [&](const float (&acc)[64], int i) {
+    const int k = item_of(i);
+    const int nc = 2 * k + 1 < nchunks ? 2 : 1;    // chunks of the item
+    const unsigned char* tile = slot_of(i) + first_chunk_at(i) * bk::CHUNK_BYTES;
+    const float* r2s = reinterpret_cast<const float*>(slot_of(i) + bk::R2_OFF) +
+                       first_chunk_at(i) * bk::BN;
+    if (i < nitems) {                              // pass 1: the least a~
+#pragma unroll
+      for (int c = 0; c < bk::ITEM; ++c) {
+        if (c < nc) {
+#pragma unroll
+          for (int p = 0; p < 32; ++p) lim[p] = fminf(lim[p], approx(acc, r2s, c, p));
+        }
+      }
+      if (i == nitems - 1) set_thresholds();
+      return;
+    }
+    // pass 2: the pairs within thr, a pair per lane and step, through the
+    // exact chain on the query row and r = hi + lo, both from shared memory
+    uint32_t m0 = 0, m1 = 0;
+#pragma unroll
+    for (int p = 0; p < 32; ++p) {
+      m0 |= (approx(acc, r2s, 0, p) > lim[p] ? 0u : 1u) << p;
+      m1 |= (approx(acc, r2s, 1, p) > lim[p] ? 0u : 1u) << p;
+    }
+    m1 = nc == 2 ? m1 : 0u;
+    while (__any_sync(FULL, (m0 | m1) != 0)) {
+      const bool act = (m0 | m1) != 0;
+      const int c = m0 != 0 ? 0 : 1;
+      const int p = act ? __ffs(c ? m1 : m0) - 1 : 0;
+      m1 = c ? m1 & (m1 - 1) : m1;
+      m0 = c ? m0 : m0 & (m0 - 1);
+      const int n = pair_col(p, t);
+      const int lr = local_row(p >> 4);
+      const float4 q0 = qrows[2 * lr], q1 = qrows[2 * lr + 1];
+      const float q[D] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+      // row n of the 32-byte-swizzled chunk: its 16-byte halves swap in rows
+      // 4-7 of every 8
+      const int sw = (n >> 2) & 1;
+      const unsigned char* row = tile + c * bk::CHUNK_BYTES + n * bk::ROW_BYTES;
+      const float4* h = reinterpret_cast<const float4*>(row);
+      const float4* l = reinterpret_cast<const float4*>(row + bk::LO_OFF);
+      const float4 h0 = h[sw], h1 = h[sw ^ 1], l0 = l[sw], l1 = l[sw ^ 1];
+      const float4 ra = make_float4(__fadd_rn(h0.x, l0.x), __fadd_rn(h0.y, l0.y),
+                                    __fadd_rn(h0.z, l0.z), __fadd_rn(h0.w, l0.w));
+      const float4 rb = make_float4(__fadd_rn(h1.x, l1.x), __fadd_rn(h1.y, l1.y),
+                                    __fadd_rn(h1.z, l1.z), __fadd_rn(h1.w, l1.w));
+      const float d = sq_diff_sum(q, ra, rb);
+      const int j = 2 * k + c;
+      const bool ok = act && row0 + lr < a.Q && b0 + n < a.nb &&
+                      (long long)j * a.nb + b0 + n < a.R;
+      unsigned long long* slot = key_slot(p);
+      const unsigned long long old = *slot, key = best_key(d, j);
+      *slot = ok && key < old ? key : old;
+      nre += ok ? 1u : 0u;
+    }
+  };
+
+  // One group in flight per warpgroup: the other two warpgroups' epilogues
+  // run while it computes.
+  float acc[64];
+  for (int i = 0; i < 2 * nitems; ++i) {
+    const int k = item_of(i);
+    if (k % bk::PER_STAGE == 0) {                  // the item opens a stage
+      const int s = stage_of(i);
+      mbar_wait_warp(full + s % bk::STAGES, (s / bk::STAGES) & 1);
+    }
+    const unsigned char* tile = slot_of(i) + first_chunk_at(i) * bk::CHUNK_BYTES;
+    const uint64_t dhi = smem_desc(tile, 16, 8 * bk::ROW_BYTES, 3);
+    const uint64_t dlo = smem_desc(tile + bk::LO_OFF, 16, 8 * bk::ROW_BYTES, 3);
+    fence_regs(acc);
+    wgmma_fence();
+    if constexpr (PASSES == 3) {
+      wgmma_tf32_rs_n128(acc, ahi, dlo, 0);
+      wgmma_tf32_rs_n128(acc, alo, dhi, 1);
+      wgmma_tf32_rs_n128(acc, ahi, dhi, 1);
+    } else {
+      wgmma_tf32_rs_n128(acc, ahi, dhi, 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    epilogue(acc, i);
+    // the stage is read: free it (warp-uniform waits and a predicated arrive,
+    // as around an in-flight wgmma: ptxas serializes wgmma near divergent code)
+    __syncwarp();
+    mbar_arrive_if(empty + stage_of(i) % bk::STAGES,
+                   lane == 0 && (k % bk::PER_STAGE == bk::PER_STAGE - 1 || k == nitems - 1));
+  }
+
+  // The warpgroup's 64 rows x 64 buckets: (distance, index) from the keys,
+  // a row's buckets from adjacent threads; no reference: +inf, b.
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
+#pragma unroll 4
+  for (int it = 0; it < 32; ++it) {
+    const int item = it * 128 + tid;
+    const int rl = item >> 6, col = item & 63;     // row of the warpgroup, bucket of the group
+    const int w = rl >> 4, hr = (rl >> 3) & 1, gg = rl & 7;
+    const int p = 16 * hr + 2 * (col >> 3) + (col & 1);
+    const int owner = 32 * w + 4 * gg + ((col >> 1) & 3);
+    const unsigned long long key = keys[(wgi * 32 + p) * 128 + owner];
+    const long long row = row0 + wgi * 64 + rl;
+    if (row < a.Q && b0 + col < a.nb) {
+      const unsigned j = (unsigned)key;
+      a.out_d[row * a.nb + b0 + col] = __uint_as_float((unsigned)(key >> 32));
+      a.out_i[row * a.nb + b0 + col] = (j == 0xffffffffu ? 0LL : (long long)j * a.nb) + b0 + col;
+    }
+  }
+  if (a.rechecks != nullptr) {
+    const unsigned n = __reduce_add_sync(FULL, nre);
+    if (lane == 0) atomicAdd(a.rechecks, (unsigned long long)n);
+  }
+}
+
+template <int PASSES>
+__global__ void __launch_bounds__(bk::THREADS, 1)
+    bucket_filter_kernel(const __grid_constant__ CUtensorMap thi,
+                         const __grid_constant__ CUtensorMap tlo,
+                         const __grid_constant__ CUtensorMap tr2, const BucketArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + bk::BARS);
+  uint64_t* empty = full + bk::STAGES;
+  const int b0 = blockIdx.y * bk::BN;
+  // chunks holding a reference of this bucket group: j nb + b0 < R
+  const int nchunks = b0 < a.R ? (a.R - 1 - b0) / a.nb + 1 : 0;
+  const int nst = (nchunks + bk::CH - 1) / bk::CH;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < bk::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, bk::CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (b >= nb) return;
 
-  float best[BT_BQ];
-  long long best_i[BT_BQ];
-#pragma unroll
-  for (int j = 0; j < BT_BQ; ++j) {
-    best[j] = INFINITY;
-    best_i[j] = b;
-  }
-  for (long long r = b; r < R; r += nb) {
-    const float4* p = reinterpret_cast<const float4*>(ref + r * D);
-    const float4 ra = p[0], rb = p[1];
-    const float rr[D] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w};
-#pragma unroll
-    for (int j = 0; j < BT_BQ; ++j) {
-      const float4 qa = qs[j][0], qb = qs[j][1];
-      const float q[D] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-      float d = 0.0f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) {
-        const float diff = __fsub_rn(q[k], rr[k]);
-        d = __fadd_rn(d, __fmul_rn(diff, diff));
-      }
-      if (d < best[j]) {
-        best[j] = d;
-        best_i[j] = r;
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load, the chunks once per
+    // pass; setmaxnreg moves registers from it to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(bk::REG_PRODUCER) : "memory");
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < 2 * nst; ++k) {
+        const int sl = k % bk::STAGES;
+        mbar_wait(empty + sl, ((k / bk::STAGES) & 1) ^ 1);
+        load_bucket_stage(smem + sl * bk::STAGE_STRIDE, full + sl, &thi, &tlo, &tr2, b0, k % nst);
       }
     }
-  }
-#pragma unroll
-  for (int j = 0; j < BT_BQ; ++j) {
-    if (q0 + j < Q) {
-      out_d[(q0 + j) * nb + b] = best[j];
-      out_i[(q0 + j) * nb + b] = best_i[j];
-    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(bk::REG_CONSUMER) : "memory");
+    bucket_consumer<PASSES>(a, smem, full, empty, b0, nchunks);
   }
 }
 
@@ -694,6 +965,39 @@ bool make_rows_map(CUtensorMap* map, const float* base, int rows) {
 }
 
 long long padded_refs(long long R) { return (R + fl::STAGE_N - 1) / fl::STAGE_N * fl::STAGE_N; }
+
+// The bucket layout of R references: J = ceil(R / nb) chunks of nb_pad rows.
+long long bucket_pad(int nb) { return ((long long)nb + bk::BN - 1) / bk::BN * bk::BN; }
+long long bucket_rows(long long R, int nb) { return (R + nb - 1) / nb * bucket_pad(nb); }
+
+// The split references of the bucket layout as a 3-D map (8, nb_pad, J):
+// boxes of CH chunks of 64 rows in the 32-byte swizzle.
+bool make_chunk_map(CUtensorMap* map, const float* base, int nb_pad, int J) {
+  EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)nb_pad, (cuuint64_t)J};
+  const cuuint64_t strides[2] = {(cuuint64_t)bk::ROW_BYTES, (cuuint64_t)nb_pad * bk::ROW_BYTES};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)bk::BN, (cuuint32_t)bk::CH};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// |r|^2 of the bucket layout as a 2-D map (nb_pad, J): boxes of CH x 64.
+bool make_chunk_r2_map(CUtensorMap* map, const float* base, int nb_pad, int J) {
+  EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)nb_pad, (cuuint64_t)J};
+  const cuuint64_t strides[1] = {(cuuint64_t)nb_pad * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)bk::BN, (cuuint32_t)bk::CH};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace
 
@@ -728,7 +1032,7 @@ int iggt_nn1(const float* query, const float* ref, long long* out, long long Q, 
   cudaError_t err = cudaMemsetAsync(max_r2, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return (int)err;
   nn1_split_kernel<<<R_pad / SPLIT_THREADS, SPLIT_THREADS, 0, st>>>(ref, hi, lo, r2, max_r2,
-                                                                    (int)R);
+                                                                    (int)R, R_pad, R_pad, R_pad);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -748,27 +1052,63 @@ int iggt_nn1(const float* query, const float* ref, long long* out, long long Q, 
   return (int)cudaGetLastError();
 }
 
+// Bytes of the scratch iggt_bucket_min takes: the split references in the
+// bucket layout (hi, lo, |r|^2) and max |r|^2.
+long long iggt_bucket_scratch_bytes(long long R, int nb) {
+  return nb > 0 ? bucket_rows(R, nb) * (2 * D * 4 + 4) + 256 : 0;
+}
+
 // query (Q, 8) and ref (R, 8): contiguous fp32, 16-byte aligned; out_d (Q, nb)
-// fp32 and out_i (Q, nb) int64.  *launches receives the number of kernels
-// launched.  Returns a cudaError_t (0 on success).
+// fp32 and out_i (Q, nb) int64; scratch of iggt_bucket_scratch_bytes(R, nb),
+// 256-byte aligned.  ku, onepcu, floor_abs, passes: the filter as iggt_nn1
+// takes it; rechecks (may be null) receives the number of exact chains
+// computed.  *launches receives the number of bucket_filter_kernel launches.
+// Returns a cudaError_t (0 on success).
 int iggt_bucket_min(const float* query, const float* ref, float* out_d, long long* out_i,
-                    long long Q, long long R, int nb, void* stream, int* launches) {
+                    long long Q, long long R, int nb, void* scratch, float ku, float onepcu,
+                    float floor_abs, int passes, unsigned long long* rechecks, void* stream,
+                    int* launches) {
   *launches = 0;
-  if (Q <= 0 || R <= 0 || nb <= 0) return (int)cudaErrorInvalidValue;
-  const long long qblocks = (Q + BT_BQ - 1) / BT_BQ;
-  // grid.y is at most 65535: further query blocks go to further launches
-  const long long per_launch = 65535;
-  for (long long s = 0; s < qblocks; s += per_launch) {
-    const long long n = qblocks - s < per_launch ? qblocks - s : per_launch;
-    const dim3 grid((unsigned)((nb + BT_THREADS - 1) / BT_THREADS), (unsigned)n);
-    const long long q_off = s * BT_BQ;
-    bucket_min_kernel<<<grid, BT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        query + q_off * D, ref, out_d + q_off * nb, out_i + q_off * nb, Q - q_off, R, nb);
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    ++*launches;
+  if (Q <= 0 || R <= 0 || nb <= 0 || R > 0x7fffffffLL || (passes != 1 && passes != 3)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return 0;
+  const long long rows = bucket_rows(R, nb), nb_pad = bucket_pad(nb);
+  const long long blocks = (Q + bk::BM - 1) / bk::BM, groups = nb_pad / bk::BN;
+  if (rows > 0x7fffffffLL - SPLIT_THREADS || blocks > 0x7fffffffLL || groups > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int J = (int)(rows / nb_pad);
+  unsigned char* s = static_cast<unsigned char*>(scratch);
+  float* hi = reinterpret_cast<float*>(s);
+  float* lo = reinterpret_cast<float*>(s + (size_t)rows * bk::ROW_BYTES);
+  float* r2 = reinterpret_cast<float*>(s + (size_t)rows * 2 * bk::ROW_BYTES);
+  unsigned* max_r2 = reinterpret_cast<unsigned*>(s + (size_t)rows * (2 * bk::ROW_BYTES + 4));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  cudaError_t err = cudaMemsetAsync(max_r2, 0, sizeof(unsigned), st);
+  if (err != cudaSuccess) return (int)err;
+  nn1_split_kernel<<<(unsigned)((rows + SPLIT_THREADS - 1) / SPLIT_THREADS), SPLIT_THREADS, 0,
+                     st>>>(ref, hi, lo, r2, max_r2, (int)R, nb, (int)nb_pad, (int)rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  CUtensorMap thi, tlo, tr2;
+  if (!make_chunk_map(&thi, hi, (int)nb_pad, J) || !make_chunk_map(&tlo, lo, (int)nb_pad, J) ||
+      !make_chunk_r2_map(&tr2, r2, (int)nb_pad, J)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  BucketArgs a;
+  a.query = query; a.max_r2 = max_r2; a.out_d = out_d; a.out_i = out_i;
+  a.rechecks = rechecks;
+  a.Q = Q; a.R = (int)R; a.nb = nb;
+  a.ku = ku; a.onepcu = onepcu; a.floor_abs = floor_abs;
+  auto kern = passes == 3 ? bucket_filter_kernel<3> : bucket_filter_kernel<1>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bk::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3((unsigned)blocks, (unsigned)groups), bk::THREADS, bk::SMEM, st>>>(thi, tlo, tr2, a);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *launches = 1;
+  return (int)err;
 }
 
 const char* iggt_cuda_error_string(int err) {

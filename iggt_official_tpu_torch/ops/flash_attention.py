@@ -6,12 +6,16 @@ kernels of that module map onto `csrc/flash_attention.cu`:
 - `flash_attention`: non-causal softmax(Q K^T D^-1/2 + key_bias) V, online
   softmax in fp32, for (B, N, H, D) tensors with D in {32, 64} and dtype in
   {bf16, fp32}.  bf16 runs a wgmma kernel fed by TMA, which reads q/k/v in
-  place through tensor maps (`_check_tma`); fp32 runs a scalar kernel.
+  place through tensor maps (`_check_tma`).  fp32 runs three TF32 passes on
+  wgmma (hi.hi + hi.lo + lo.hi, which hold 1e-5 where one pass cannot): a
+  prep kernel first splits q, k and V^T into hi / lo scratch that the
+  wrapper allocates (`iggt_flash_fp32_scratch_floats`), then a wgmma kernel
+  fed by TMA attends over it.
 - `flash_attention_fused`: the same after the aggregator's q/k prep (fp32
   head-dim LayerNorm with the fast variance, then 2D RoPE from packed
-  (B, N, D) tables, one rounding to the compute dtype).  In bf16 a prep
-  kernel preps every q and k row once, into scratch the wrapper allocates;
-  the fp32 kernel preps each tile as it loads it.
+  (B, N, D) tables, one rounding to the compute dtype).  A prep kernel
+  preps every q and k row once, into scratch the wrapper allocates (in fp32
+  the same kernel that splits them).
 
 The wrappers launch the kernels for CUDA tensors (or raise) and take the
 plain version only for CPU tensors.  Each wrapper counts its calls that
@@ -122,9 +126,11 @@ def _kernel():
         + [p, p]                     # prepped q / k scratch
         + [i, i, i, i]               # B, H, Nq, Nk
         + [ll] * 9                   # q, k, v strides (batch, row, head)
-        + [f, f, p]                  # scale, eps, stream
+        + [f, f, i, p]               # scale, eps, fault, stream
     )
     fn.restype = ctypes.c_int
+    lib.iggt_flash_fp32_scratch_floats.argtypes = [i, i, i, i, i]
+    lib.iggt_flash_fp32_scratch_floats.restype = ll
     lib.iggt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.iggt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -156,9 +162,15 @@ def _check_tma(t: torch.Tensor, strides: Tuple[int, int, int]) -> None:
             f"({2 * sb}, {2 * sn}, {2 * sh})")
 
 
-def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5):
-    """Check the inputs, allocate the output (and, with the q/k prep in bf16,
-    the prepped q/k scratch) and launch the kernels."""
+# planted faults of the fp32 path, for the card check only (`_launch`'s fault)
+FP32_FAULTS = {"one TF32 pass": 1, "V^T without the key permutation": 2}
+
+
+def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5, fault=None):
+    """Check the inputs, allocate the output and the scratch (the prepped q/k
+    in bf16 with the q/k prep, the TF32 split in fp32) and launch the
+    kernels.  ``fault`` (a key of `FP32_FAULTS`, fp32 only) plants a fault
+    for the card check; no caller of the port passes it."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -201,13 +213,18 @@ def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5):
         if any(t.shape != (D,) for t in norm):
             raise ValueError("qk-norm params must each be (D,)")
     gq, bq, gk, bk = norm if norm is not None else (None,) * 4
+    if fault is not None and q.dtype != torch.float32:
+        raise ValueError("planted faults apply to the fp32 path only")
+    lib = _kernel()
     q_prep = k_prep = None
-    if prep and q.dtype == torch.bfloat16:
+    if q.dtype == torch.float32:
+        q_prep = torch.empty(lib.iggt_flash_fp32_scratch_floats(B, H, Nq, Nk, D),
+                             dtype=torch.float32, device=q.device)
+    elif prep:
         q_prep = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
         k_prep = torch.empty((B, Nk, H, D), dtype=q.dtype, device=q.device)
 
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
-    lib = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.iggt_flash_attention(
@@ -219,7 +236,7 @@ def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5):
             _ptr(q_prep), _ptr(k_prep),
             B, H, Nq, Nk,
             *strides[0], *strides[1], *strides[2],
-            1.0 / math.sqrt(D), eps, stream,
+            1.0 / math.sqrt(D), eps, FP32_FAULTS[fault] if fault else 0, stream,
         )
     if err != 0:
         raise RuntimeError("flash attention kernel failed to launch: "
@@ -260,8 +277,8 @@ def flash_attention_fused(
     key_bias: Optional[torch.Tensor] = None,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """Flash attention after the q/k prep (in bf16 each row prepped once by
-    the prep kernel, then attended over by the wgmma kernel).
+    """Flash attention after the q/k prep (each row prepped once by the prep
+    kernel, then attended over by the wgmma kernel).
 
     q/k/v: (B, N, H, D) in the compute dtype, *before* norm/RoPE.
     rope_cos/rope_sin: (B, N, D) fp32 packed tables.

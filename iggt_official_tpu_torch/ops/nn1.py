@@ -20,8 +20,9 @@ return equal indices, not merely close ones.
 query, the nearest reference of each bucket (reference index mod ``nb``) by
 the same exact distances, then the exact top-k over the ``nb`` bucket minima
 (approximate k-NN with exact distances).  Like its JAX counterpart it has no
-caller in the package.  CUDA tensors launch the `bucket_min` kernel of
-`csrc/nn1.cu` through `bucket_minima_kernel`, which counts every launch in
+caller in the package.  CUDA tensors launch the bucket filter kernel of
+`csrc/nn1.cu` (the nn1 filter and recheck, per bucket, with the same window)
+through `bucket_minima_kernel`, which counts every launch in
 `bucket_minima_kernel.launches`; CPU tensors take `bucket_topk_plain`.
 """
 
@@ -108,9 +109,11 @@ def _kernel():
     lib.iggt_nn1.restype = ctypes.c_int
     lib.iggt_nn1_scratch_bytes.argtypes = [ll]
     lib.iggt_nn1_scratch_bytes.restype = ll
-    lib.iggt_bucket_min.argtypes = [p, p, p, p, ll, ll, ctypes.c_int, p,
-                                    ctypes.POINTER(ctypes.c_int)]
+    lib.iggt_bucket_min.argtypes = [p, p, p, p, ll, ll, ctypes.c_int, p, f, f, f,
+                                    ctypes.c_int, p, p, ctypes.POINTER(ctypes.c_int)]
     lib.iggt_bucket_min.restype = ctypes.c_int
+    lib.iggt_bucket_scratch_bytes.argtypes = [ll, ctypes.c_int]
+    lib.iggt_bucket_scratch_bytes.restype = ll
     lib.iggt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.iggt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -212,12 +215,18 @@ def bucket_topk_plain(query: torch.Tensor, ref: torch.Tensor, k: int,
     return topk_over_buckets(*bucket_minima_plain(query, ref, nb), k)
 
 
-def bucket_minima_kernel(query: torch.Tensor, ref: torch.Tensor,
-                         nb: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`bucket_minima_plain` on the card through the `bucket_min` kernel;
-    counts each kernel launch (one per 1,048,560 queries) in
-    `bucket_minima_kernel.launches`."""
+def bucket_minima_kernel(query: torch.Tensor, ref: torch.Tensor, nb: int = 1024, fault=None,
+                         rechecks: torch.Tensor = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`bucket_minima_plain` on the card: the split kernel lays the references
+    out by bucket, then the bucket filter kernel (nn1's TF32 filter and exact
+    recheck, per bucket) writes the minima; counts each launch of the filter
+    kernel (one per call) in `bucket_minima_kernel.launches`.  Private
+    arguments for the card checks, as `_launch` takes them: ``fault`` plants a
+    fault of the filter (`FAULTS`), ``rechecks`` (one int64 on the card)
+    receives the number of exact chains computed."""
     _check(query, ref)
+    if not 0 < nb:
+        raise ValueError(f"nb must be positive, got {nb}")
     if not query.is_cuda:
         raise ValueError("the bucket_min kernel takes CUDA tensors")
     if query.shape[1] != KERNEL_DIM:
@@ -230,11 +239,16 @@ def bucket_minima_kernel(query: torch.Tensor, ref: torch.Tensor,
     if Q == 0:
         return bd, bi
     lib = _kernel()
+    scratch = torch.empty(lib.iggt_bucket_scratch_bytes(ref.shape[0], nb), dtype=torch.uint8,
+                          device=query.device)
+    ku, onepcu, floor, passes = _filter_args(fault)
     launched = ctypes.c_int(0)
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
         err = lib.iggt_bucket_min(query.data_ptr(), ref.data_ptr(), bd.data_ptr(),
-                                  bi.data_ptr(), Q, ref.shape[0], nb, stream,
+                                  bi.data_ptr(), Q, ref.shape[0], nb, scratch.data_ptr(), ku,
+                                  onepcu, floor, passes,
+                                  None if rechecks is None else rechecks.data_ptr(), stream,
                                   ctypes.byref(launched))
     bucket_minima_kernel.launches += launched.value
     if err != 0:

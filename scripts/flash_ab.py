@@ -6,8 +6,8 @@
 TREE is the root of a checkout (this one, or an older commit unpacked with
 `git archive` into a directory that `.gitignore` lists), TAG a label for the
 output.  Needs a CUDA card.  For every flash case of the tree's
-`chip_smoke.KERNEL_CASES` (plus the fused global-block case, which older
-trees lack) it prints the time of one wrapper call from CUDA events over 20
+`chip_smoke.KERNEL_CASES` (plus the fused global-block case and the fp32
+fused frame and global cases, which older trees lack) it prints the time of one wrapper call from CUDA events over 20
 calls after warm-up (`chip_smoke.time_ms`) and the device time of the
 `flash_kernel*` kernels per call from `torch.profiler`; then the host time of
 one wrapper call at a tiny shape (1, 16, 1, D), where the device is idle, and
@@ -41,9 +41,13 @@ def main(tree: str, tag: str) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = list(chip_smoke.KERNEL_CASES)
-    if not any(label.startswith("global block q/k prep") for label, *_ in cases):
-        cases.append(("global block q/k prep, 8 views 518px", "flash_attention_fused",
-                      (1, 10992, 16, 64), "bfloat16", False))
+    for label, shape, dtype_name in (
+            ("global block q/k prep, 8 views 518px", (1, 10992, 16, 64), "bfloat16"),
+            ("frame block q/k prep, fp32 trunk, 8 views 518px", (8, 1374, 16, 64), "float32"),
+            ("global block q/k prep, fp32 trunk, 8 views 518px", (1, 10992, 16, 64),
+             "float32")):
+        if not any(case[0] == label for case in cases):
+            cases.append((label, "flash_attention_fused", shape, dtype_name, False))
     grid = {1374: (37, 37, 1), 869: (24, 36, 1), 10992: (37, 37, 8)}
     out = {}
     for label, kernel, (B, N, H, D), dtype_name, with_bias in cases:
@@ -88,10 +92,13 @@ def main(tree: str, tag: str) -> None:
     o = torch.empty_like(q)
     args = [1, 64, 0, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
             None, None, 0, 0, None, None, None, None]
-    if len(lib.iggt_flash_attention.argtypes) == 35:     # with the prepped q/k scratch pointers
+    if len(lib.iggt_flash_attention.argtypes) >= 35:     # with the prepped q/k scratch pointers
         args += [None, None]
     args += [1, 1, 16, 16, *(t.stride(i) for t in (q, k, v) for i in range(3)),
-             1 / math.sqrt(64), 1e-5, torch.cuda.current_stream().cuda_stream]
+             1 / math.sqrt(64), 1e-5]
+    if len(lib.iggt_flash_attention.argtypes) == 36:     # with the planted-fault code
+        args += [0]
+    args += [torch.cuda.current_stream().cuda_stream]
     out["host us per ctypes call"] = host_us(lambda: lib.iggt_flash_attention(*args))
     print(f"AB {tag} " + json.dumps(out), flush=True)
 

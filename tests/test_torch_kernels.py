@@ -11,7 +11,9 @@ fp32; summation order differs).  bf16 2^-6 * max|ref| abs, i.e. 2 to 4 bf16
 ulps of the largest output: both sides keep fp32 logits and round the output
 to bf16 once, the kernel its unnormalized probabilities and the plain version
 its normalized ones, and the errors seen at the main path's shapes are one
-ulp of max|ref|.  The limit scales with the output because attention outputs
+ulp of max|ref|.  The fp32 kernel runs three TF32 passes on split operands
+(2^-20 |x||y| per product) and adds each key tile's P.V to O in fp32; its
+errors seen are under 3e-6.  The limit scales with the output because attention outputs
 shrink as ~sqrt(e / N) with N keys.  nn1 and bucket top-k: equal indices
 and distances (kernel and plain version round every subtraction, square and
 addition alike, and both take the smallest index among equal distances; the
@@ -111,6 +113,38 @@ def test_bf16_flash_kernel_ragged_lengths(cuda_device, D, nq, nk):
     _, k, v, bias, _ = _qkv(cuda_device, torch.bfloat16, B=2, N=nk, H=3, D=D, seed=6)
     _assert_close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v))
     _assert_close(fa.flash_attention(q, k, v, bias), fa.flash_attention_plain(q, k, v, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("nq,nk", RAGGED)
+def test_fp32_flash_kernel_ragged_lengths(cuda_device, D, nq, nk):
+    """The TF32 kernel at ragged lengths (TMA zero-fills q/k rows past N, the
+    prep kernel zero-pads V^T to 64 keys, keys past Nk are masked), with and
+    without a key bias, plain and after the q/k prep."""
+    q, _, _, _, norm = _qkv(cuda_device, torch.float32, B=2, N=nq, H=3, D=D, seed=9)
+    _, k, v, bias, _ = _qkv(cuda_device, torch.float32, B=2, N=nk, H=3, D=D, seed=10)
+    _assert_close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v))
+    _assert_close(fa.flash_attention(q, k, v, bias), fa.flash_attention_plain(q, k, v, bias))
+    n = max(nq, nk)
+    pos = rope.make_patch_positions(1, n, 2, 0, device=cuda_device)
+    cos, sin = rope.pack_rope_tables(rope.compute_rope_2d(pos, D))
+    ref = fa.flash_attention_plain(fa.qk_prep_plain(q, norm[0], norm[1], cos, sin),
+                                   fa.qk_prep_plain(k, norm[2], norm[3], cos, sin), v, bias)
+    _assert_close(fa.flash_attention_fused(q, k, v, cos, sin, norm, bias), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64])
+def test_fp32_flash_kernel_reads_strided_views(cuda_device, D):
+    """fp32 q/k/v as strided views of one packed qkv give the same bits as
+    contiguous copies (the prep kernel reads them in place)."""
+    q, k, v, bias, _ = _qkv(cuda_device, torch.float32, B=2, N=300, H=4, D=D, seed=11)
+    assert not q.is_contiguous()
+    out = fa.flash_attention(q, k, v, bias)
+    assert torch.equal(out, fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                               bias))
+    _assert_close(out, fa.flash_attention_plain(q, k, v, bias))
 
 
 @pytest.mark.cuda
@@ -352,8 +386,8 @@ def test_bucket_topk_kernel_matches_plain(cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_bucket_minima_kernel_counts_every_launch(cuda_device):
-    """Past 65,535 blocks of 16 queries the C side launches again; each
-    launch counts once, and the second launch's queries are right."""
+    """One launch of the bucket filter kernel per call, at any Q (here over a
+    million queries, 8,193 query tiles); the last queries' minima are right."""
     from iggt_official_tpu_torch.ops import nn1 as nn1_mod
 
     gen = torch.Generator(device=cuda_device).manual_seed(4)
@@ -362,7 +396,77 @@ def test_bucket_minima_kernel_counts_every_launch(cuda_device):
     n = nn1_mod.bucket_minima_kernel.launches
     bd, bi = nn1_mod.bucket_minima_kernel(qry, ref, 8)
     torch.cuda.synchronize()
-    assert nn1_mod.bucket_minima_kernel.launches == n + 2
+    assert nn1_mod.bucket_minima_kernel.launches == n + 1
     tail = qry[-5_000:]
     want_d, want_i = nn1_mod.bucket_minima_plain(tail, ref, 8)
     assert torch.equal(bi[-5_000:], want_i) and torch.equal(bd[-5_000:], want_d)
+
+
+def _bucket_near_ties(device, Q, R, nb, seed):
+    """Unit queries, each with 4 references within 1e-4 to 1e-3 of it, exact
+    duplicates in a later chunk of the same bucket, and queries on them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qry = torch.randn((Q, 8), generator=gen, device=device)
+    qry /= qry.norm(dim=1, keepdim=True)
+    ref = torch.randn((R, 8), generator=gen, device=device)
+    ref /= ref.norm(dim=1, keepdim=True)
+    v = torch.randn((Q, 4, 8), generator=gen, device=device)
+    v /= v.norm(dim=2, keepdim=True)
+    eps = 1e-4 + 9e-4 * torch.rand((Q, 4, 1), generator=gen, device=device)
+    planted = (qry[:, None] + eps * v).reshape(-1, 8)[:R // 2]
+    ref[torch.randperm(R, generator=gen, device=device)[:planted.shape[0]]] = planted
+    if R > 3 * nb:
+        dup = torch.arange(min(nb, 16, Q), device=device)
+        ref[2 * nb + dup] = ref[dup]
+        qry[:dup.numel()] = ref[dup]
+    return qry, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 48, 64, 1000, 1024, 2048])
+@pytest.mark.parametrize("Q,R", [(1, 2_731), (1_001, 2_731), (129, 4_100)])
+def test_bucket_minima_kernel_near_ties_ragged(cuda_device, Q, R, nb):
+    """Any nb > 0 (a partial last 64-bucket group, nb not a multiple of 64,
+    one bucket), ragged Q and R, near ties and duplicates across chunks:
+    equal indices and distances."""
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+
+    qry, ref = _bucket_near_ties(cuda_device, Q, R, nb, seed=Q + R + nb)
+    bd, bi = nn1_mod.bucket_minima_kernel(qry, ref, nb)
+    want_d, want_i = nn1_mod.bucket_minima_plain(qry, ref, nb)
+    assert torch.equal(bi, want_i) and torch.equal(bd, want_d)
+
+
+@pytest.mark.cuda
+def test_bucket_minima_kernel_exact_path(cuda_device):
+    """Rows beyond the filter's range recheck every pair: a reference with
+    |r|^2 > 2^60 puts every query on the exact path, a query with |q|^2 >
+    2^60 puts only its own row there.  Equal indices and distances."""
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    ref = torch.randn((2_000, 8), generator=gen, device=cuda_device)
+    qry = torch.randn((500, 8), generator=gen, device=cuda_device)
+    far_ref = ref.clone()
+    far_ref[777, 3] = 3e9
+    far_qry = qry.clone()
+    far_qry[5, 0] = 3e9
+    for q, r in ((qry, far_ref), (far_qry, ref)):
+        bd, bi = nn1_mod.bucket_minima_kernel(q, r, 100)
+        want_d, want_i = nn1_mod.bucket_minima_plain(q, r, 100)
+        assert torch.equal(bi, want_i) and torch.equal(bd, want_d)
+
+
+@pytest.mark.cuda
+def test_bucket_minima_kernel_more_buckets_than_references(cuda_device):
+    """nb > R: the empty buckets hold +inf and their own index."""
+    from iggt_official_tpu_torch.ops import nn1 as nn1_mod
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    ref = torch.randn((1_000, 8), generator=gen, device=cuda_device)
+    qry = torch.randn((300, 8), generator=gen, device=cuda_device)
+    bd, bi = nn1_mod.bucket_minima_kernel(qry, ref, 4_096)
+    want_d, want_i = nn1_mod.bucket_minima_plain(qry, ref, 4_096)
+    assert torch.equal(bi, want_i) and torch.equal(bd, want_d)
+    assert torch.isinf(bd[:, 1_000:]).all()
+    assert torch.equal(bi[:, 1_000:].cpu(), torch.arange(1_000, 4_096).expand(300, -1))
