@@ -47,7 +47,10 @@ order; any failure exits non-zero:
    through the plain versions, same weights and images: fp32 trunk, bf16
    trunk, bf16 trunk with `fused_ln=True`, bf16 trunk with bf16 heads (its
    own limits, and a control against the CPU's fp32 heads that must fail
-   them); then
+   them), an fp32 trunk merged at r = 40 (`global_merge_r`: the q/k prep
+   kernel alone, the merge, the key-biased flash kernel) and an fp32 trunk
+   with the track head and 16 query points (two refinement iterations; track,
+   vis and conf at the fp32 limit, view 0's track equal to the queries); then
    the post-processing (PCA, smoothing, `_cluster_mv_device`) of one
    synthetic scene on the card and on the CPU.
 5. postproc: the 10-view 504x336 synthetic scene of the JAX package's bench
@@ -81,7 +84,26 @@ order; any failure exits non-zero:
    the global blocks on the fused wrapper (the q/k prep kernel, the port's
    route) and on the plain torch prep, in turns; one forward of each
    under `torch.profiler` gives device time by kernel bucket and the
-   device's busy share.
+   device's busy share.  Then token merging and the track head: the 8x518
+   scene again through `process_scene` with
+   `RuntimeConfig(global_merge_r=4096)` (the demo's `--merge_tokens`; 4,795
+   candidates, so 6,896 keys), its file set and launch counts (per forward 24
+   fused + 24 prep-only + 49 flash: 24 key-biased global, 24 DINOv2, the part
+   head), its depth and world points against the exact request (log only:
+   random weights); its bare forward timed in turns with the exact one, two
+   merged forwards compared byte for byte; 32 views at 504x336 (N = 27,808)
+   merged at r = 8192 and exact, timed in turns, with peak memory; and the
+   full-width IGGT with `enable_track=True` at 8x518 with 256 query points
+   on a grid in view 0: shapes, finite values, vis and conf in [0, 1], view
+   0's track equal to the queries, the forward's time and the track head's
+   share of it (CUDA events), peak memory.
+
+The kernels phase also holds token merging's two launches at the merged
+8x518 global block: the q/k prep kernel alone (1, 10992, 16, 64) against
+`qk_prep_plain` (bf16 within 1 ulp, fp32 within 1e-5; faults: the RoPE
+sine's sign, gamma x sqrt2) and the key-biased flash kernel at Nq = 10992,
+Nk = 6896 (limit 2^-6 max|ref|; faults: the key bias dropped, the scale,
+the last key tile), with SDPA on a float mask as its library call.
 
 The line before the last is the card's nvidia-smi line, the one before that a
 JSON summary of the kernels, and the last line
@@ -212,55 +234,82 @@ def attention_bound_ms(B, Nq, Nk, H, D, dtype_name, extra_bytes=0):
 # phase 3: per-kernel checks
 
 KERNEL_CASES = (
-    # (label, kernel, (B, N, H, D), dtype, key bias); the frame, DINOv2 and
-    # global blocks hold 5 special tokens + the patch grid per view
-    ("global block, 8 views 518px", "flash_attention", (1, 10992, 16, 64), "bfloat16", False),
-    ("frame/DINOv2 block, 8 views 518px", "flash_attention", (8, 1374, 16, 64), "bfloat16", False),
-    ("part cross-attention, 8 views 518px", "flash_attention", (8, 1369, 8, 32), "float32", False),
+    # (label, kernel, (B, N, H, D), dtype, key bias: None, "random" (B, N), or
+    # "merged": K/V at N - MERGE_R contiguous keys, as `merge_kv` leaves them,
+    # with the log-size bias of merged keys); the frame, DINOv2 and global
+    # blocks hold 5 special tokens + the patch grid per view
+    ("global block, 8 views 518px", "flash_attention", (1, 10992, 16, 64), "bfloat16", None),
+    ("frame/DINOv2 block, 8 views 518px", "flash_attention", (8, 1374, 16, 64), "bfloat16", None),
+    ("part cross-attention, 8 views 518px", "flash_attention", (8, 1369, 8, 32), "float32", None),
     ("frame block q/k prep, 8 views 518px", "flash_attention_fused", (8, 1374, 16, 64), "bfloat16",
-     False),
+     None),
     ("global block q/k prep, 8 views 518px", "flash_attention_fused", (1, 10992, 16, 64),
-     "bfloat16", False),
+     "bfloat16", None),
     # trunk_dtype="float32": the frame and global blocks' fused route in fp32
     ("frame block q/k prep, fp32 trunk, 8 views 518px", "flash_attention_fused",
-     (8, 1374, 16, 64), "float32", False),
+     (8, 1374, 16, 64), "float32", None),
     ("global block q/k prep, fp32 trunk, 8 views 518px", "flash_attention_fused",
-     (1, 10992, 16, 64), "float32", False),
-    ("global block, 8 views 504x336", "flash_attention", (1, 6952, 16, 64), "bfloat16", False),
-    ("frame/DINOv2 block, 8 views 504x336", "flash_attention", (8, 869, 16, 64), "bfloat16", False),
-    ("part cross-attention, 8 views 504x336", "flash_attention", (8, 864, 8, 32), "float32", False),
+     (1, 10992, 16, 64), "float32", None),
+    ("global block, 8 views 504x336", "flash_attention", (1, 6952, 16, 64), "bfloat16", None),
+    ("frame/DINOv2 block, 8 views 504x336", "flash_attention", (8, 869, 16, 64), "bfloat16", None),
+    ("part cross-attention, 8 views 504x336", "flash_attention", (8, 864, 8, 32), "float32", None),
     ("frame block q/k prep, 8 views 504x336", "flash_attention_fused", (8, 869, 16, 64), "bfloat16",
-     False),
-    ("global block, 3 views 504x336", "flash_attention", (1, 2607, 16, 64), "bfloat16", False),
-    ("frame/DINOv2 block, 3 views 504x336", "flash_attention", (3, 869, 16, 64), "bfloat16", False),
-    ("part cross-attention, 3 views 504x336", "flash_attention", (3, 864, 8, 32), "float32", False),
+     None),
+    ("global block, 3 views 504x336", "flash_attention", (1, 2607, 16, 64), "bfloat16", None),
+    ("frame/DINOv2 block, 3 views 504x336", "flash_attention", (3, 869, 16, 64), "bfloat16", None),
+    ("part cross-attention, 3 views 504x336", "flash_attention", (3, 864, 8, 32), "float32", None),
     ("frame block q/k prep, 3 views 504x336", "flash_attention_fused", (3, 869, 16, 64), "bfloat16",
-     False),
-    ("key_bias", "flash_attention", (2, 1374, 16, 64), "bfloat16", True),
+     None),
+    ("key_bias", "flash_attention", (2, 1374, 16, 64), "bfloat16", "random"),
     # head_dtype="bfloat16": the part head's cross-attention in bf16
     ("part cross-attention, bf16 heads, 8 views 518px", "flash_attention", (8, 1369, 8, 32),
-     "bfloat16", False),
+     "bfloat16", None),
     ("part cross-attention, bf16 heads, 8 views 504x336", "flash_attention", (8, 864, 8, 32),
-     "bfloat16", False),
+     "bfloat16", None),
     ("part cross-attention, bf16 heads, 3 views 504x336", "flash_attention", (3, 864, 8, 32),
-     "bfloat16", False),
+     "bfloat16", None),
+    # --merge_tokens: the 24 merged global blocks, Nq 10992 against Nk 6896
+    ("merged global block, key bias, 8 views 518px", "flash_attention", (1, 10992, 16, 64),
+     "bfloat16", "merged"),
 )
 # tokens per (batch) row -> (h, w) patches of a view, views in the row: the
 # frame blocks hold one view, the global block all 8 views of the request
 PATCH_GRID = {1374: (37, 37, 1), 869: (24, 36, 1), 10992: (37, 37, 8)}
 MAIN_CASE = {"flash_attention": "frame/DINOv2 block, 8 views 518px",
              "flash_attention_fused": "frame block q/k prep, 8 views 518px",
+             "qk_prep": "merged global block q/k prep, bfloat16, 8 views 518px",
              "nn1": "backfill, 8 views 518x518",
              "fused_ln": "frame/global pre-norm, 8 views 518px",
              "bucket_topk": "core kNN candidate, Q = R = 150000"}
 REPLACES = {
     "flash_attention": "iggt_official_tpu/ops/flash_attention.py:117",
     "flash_attention_fused": "iggt_official_tpu/ops/flash_attention.py:335",
+    "qk_prep": "iggt_official_tpu/ops/flash_attention.py:335",
     "nn1": "iggt_official_tpu/ops/nn1_pallas.py:82",
     "fused_ln": "iggt_official_tpu/ops/fused_ln.py:39",
     "bucket_topk": "iggt_official_tpu/ops/nn1_pallas.py:190",
 }
 KEY_TILE = 64
+MERGE_R = 4096           # the merged 8x518 request's --merge_tokens (4,795 candidates)
+# The prep's bf16 outputs are held to 1 ulp at max(|out|, |ref|, 1/64): both
+# sides prep in fp32 and round once, but their fp32 sums differ by ~1e-6 of
+# the O(1) LayerNorm output (fp32 is held to 1e-5); where RoPE's two terms
+# cancel to |x| < 1/64 that difference is many bf16 spacings of the small
+# result (40 read on the card without the floor), so there the spacing at
+# 1/64 (2^-13) is the unit.
+PREP_ULP_FLOOR = 2.0 ** -6
+MERGE_GLOBAL = (1, 10992, 16, 64)
+
+
+def merged_key_sizes(gen, n_keys: int, r: int, n_targets: int):
+    """Sizes of merged keys as a plan gives them: r sources spread over the
+    first n_targets keys (the unprotected targets), every key at least 1."""
+    import torch
+
+    dst = torch.randint(0, n_targets, (r,), generator=gen, device=gen.device)
+    sizes = torch.ones(n_keys, device=gen.device)
+    sizes.index_add_(0, dst, torch.ones(r, device=gen.device))
+    return sizes[None]
 
 
 def check_kernels():
@@ -268,9 +317,10 @@ def check_kernels():
     planted faults that must each exceed the limit: made by handing the kernel
     altered inputs, the softmax scale off by sqrt(2) (q, or the q-norm affine,
     times sqrt(2)), the last key tile dropped, and (fused) the RoPE sine's
-    sign flipped on a quarter of the head dims; and in fp32 two faults of the
-    kernel itself (`flash_attention.FP32_FAULTS`): one TF32 pass instead of
-    three, V^T without the key permutation."""
+    sign flipped on a quarter of the head dims; with a key bias, the bias
+    dropped; and in fp32 two faults of the kernel itself
+    (`flash_attention.FP32_FAULTS`): one TF32 pass instead of three, V^T
+    without the key permutation."""
     import torch
     import torch.nn.functional as F
 
@@ -278,18 +328,29 @@ def check_kernels():
         compute_rope_2d, make_patch_positions, pack_rope_tables,
     )
     from iggt_official_tpu_torch.ops import flash_attention as fa
+    from iggt_official_tpu_torch.ops.token_merge import protected_tokens
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = []
-    for label, kernel, (B, N, H, D), dtype_name, with_bias in KERNEL_CASES:
+    for label, kernel, (B, N, H, D), dtype_name, bias_kind in KERNEL_CASES:
         dtype = getattr(torch, dtype_name)
-        # q/k/v as the main path hands them over: strided views of one qkv
-        qkv = torch.randn((B, N, 3, H, D), generator=gen, device=dev).to(dtype)
-        q, k, v = qkv.unbind(2)
-        bias = (torch.randn((B, N), generator=gen, device=dev) if with_bias else None)
+        if bias_kind == "merged":
+            nk = N - MERGE_R
+            q = torch.randn((B, N, H, D), generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn((B, nk, H, D), generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            h, w, views = PATCH_GRID[N]
+            specials = N // views - h * w
+            targets = int((~protected_tokens(views, N // views, specials))[0::2].sum())
+            bias = torch.log(merged_key_sizes(gen, nk, MERGE_R, targets))
+        else:
+            nk = N
+            # q/k/v as the main path hands them over: strided views of one qkv
+            q, k, v = torch.randn((B, N, 3, H, D), generator=gen, device=dev).to(dtype).unbind(2)
+            bias = (torch.randn((B, N), generator=gen, device=dev) if bias_kind else None)
         extra = 0 if bias is None else bias.numel() * 4
-        kept = N - (N % KEY_TILE or KEY_TILE)
+        kept = nk - (nk % KEY_TILE or KEY_TILE)
 
         def cut(t, kept=kept):
             return None if t is None else t[:, :kept]
@@ -338,6 +399,10 @@ def check_kernels():
                     q, cut(k), cut(v), cut(bias)),
             }
             qp, kp = q.transpose(1, 2), k.transpose(1, 2)
+        if bias is not None:
+            faults["key bias dropped"] = (
+                (lambda: fa.flash_attention_fused(q, k, v, cos, sin, norm))
+                if kernel == "flash_attention_fused" else (lambda: fa.flash_attention(q, k, v)))
         if dtype_name == "float32":
             prep_args = (cos, sin, norm) if kernel == "flash_attention_fused" else ()
             for fault in fa.FP32_FAULTS:
@@ -362,30 +427,193 @@ def check_kernels():
         ms = time_ms(run_kernel)
         plain_ms = time_ms(run_plain, iters=3, warmup=1)
         library_ms = time_ms(run_library)
-        bound_ms, bound_by, fma_ms = attention_bound_ms(B, N, N, H, D, dtype_name, extra)
+        bound_ms, bound_by, fma_ms = attention_bound_ms(B, N, nk, H, D, dtype_name, extra)
         ok = finite and err <= limit and caught
         fp32_note = (f"; three TF32 passes, fp32 FMA figure {fma_ms:.4f}"
                      if dtype_name == "float32" else "")
-        log(f"[kernels] {kernel:22s} {label:38s} {(B, N, H, D)} {dtype_name:8s} "
+        bias_note = ("" if bias is None else
+                     f"; the same call without the bias {time_ms(faults['key bias dropped']):.4f}")
+        shape = (B, N, H, D) if nk == N else f"q {(B, N, H, D)} k/v {(B, nk, H, D)}"
+        log(f"[kernels] {kernel:22s} {label:38s} {shape} {dtype_name:8s} "
             f"max_abs_err={err:.3e} (limit {limit:.3e}, max|ref| {ref_max:.3e}) "
             f"{'ok' if ok else 'FAIL'} | "
             f"ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}{fp32_note}; "
             f"{100 * bound_ms / ms:.1f}% of the bound) plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f}")
+            f"library_ms={library_ms:.4f}{bias_note}")
         log(f"[kernels]   planted faults: "
             + ", ".join(f"{name} err {e:.3e} ({e / limit:.1f}x limit)"
                         for name, e in fault_errs.items())
             + (" -- all caught" if caught else " -- NOT ALL CAUGHT"))
         results.append(dict(
-            kernel=kernel, label=label, shape=[B, N, H, D], dtype=dtype_name,
-            key_bias=with_bias, max_abs_err=err, limit=limit, max_abs_ref=ref_max,
+            kernel=kernel, label=label, shape=[B, N, H, D] if nk == N else [B, N, nk, H, D],
+            dtype=dtype_name, key_bias=bias is not None, max_abs_err=err, limit=limit, max_abs_ref=ref_max,
             fault_errs=fault_errs, ok=ok, ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             bound_share=bound_ms / ms,
         ))
-        del qkv, q, k, v, out, ref, faults
+        del q, k, v, out, ref, faults
     torch.cuda.empty_cache()
     return results
+
+def qk_prep_bound_ms(B, N, H, D, dtype_name):
+    """q and k read once and written once, plus the fp32 rope tables (B, N,
+    D) and the four norm vectors, over the HBM rate (the prep's ~20 fp32
+    operations per element take 0.05 of that at the fp32 peak)."""
+    itemsize = 2 if dtype_name == "bfloat16" else 4
+    nbytes = 4 * B * N * H * D * itemsize + 2 * B * N * D * 4 + 4 * D * 4
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def merge_costs(gen) -> None:
+    """Log the torch-op costs around the two launches at the 8x518 merged
+    global block (CUDA events): the plan (once per forward) on seeded tokens
+    and `merge_kv` of one block's K and V (each global block)."""
+    import torch
+
+    from iggt_official_tpu_torch.ops import token_merge as tm
+
+    B, N, H, D = MERGE_GLOBAL
+    views = PATCH_GRID[N][2]
+    x = torch.randn((B, N, H * D), generator=gen, device="cuda")
+    protect = torch.from_numpy(tm.protected_tokens(views, N // views, 5)).cuda().expand(B, N)
+    plan = tm.compute_merge_plan(x, MERGE_R, protect)
+    segments = tm._segments(plan, N)
+    k, v = (torch.randn((B, N, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    plan_ms = time_ms(lambda: tm.compute_merge_plan(x, MERGE_R, protect), iters=5, warmup=1)
+    merge_ms = time_ms(lambda: tm.merge_kv(k, v, plan, segments))
+    log(f"[kernels] token merge torch ops, 8 views 518px, r = {MERGE_R}: plan {plan_ms:.4f} ms "
+        f"per forward, merge_kv (K and V of one global block) {merge_ms:.4f} ms")
+
+
+def prep_f64_witness(q, k, cos, sin, norm, out, ref) -> dict:
+    """A third reading of the bf16 prep at the elements where kernel and plain
+    version differ by more than 1 bf16 ulp without PREP_ULP_FLOOR: the fp32
+    prep kernel on the same (bf16-valued) inputs gives the value the bf16
+    kernel rounds, `qk_prep_plain` in fp32 the value the plain version
+    rounds, and `qk_prep_plain` in float64 the exact prep of those inputs."""
+    import torch
+
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+
+    k32 = fa.qk_prep(q.float(), k.float(), cos, sin, norm)
+    p32 = (fa.qk_prep_plain(q.float(), norm[0], norm[1], cos, sin),
+           fa.qk_prep_plain(k.float(), norm[2], norm[3], cos, sin))
+    r64 = (fa.qk_prep_plain(q.double(), norm[0], norm[1], cos.double(), sin.double()),
+           fa.qk_prep_plain(k.double(), norm[2], norm[3], cos.double(), sin.double()))
+    over = [bf16_ulps(o, r) > 1 for o, r in zip(out, ref)]
+    n_over = sum(int(m.sum().item()) for m in over)
+
+    def at_over(parts):
+        return max([(a.double() - b).abs()[m].max().item()
+                    for a, b, m in zip(parts, r64, over) if m.any()] or [0.0])
+
+    return dict(
+        over_1ulp=n_over,
+        over_1ulp_max_abs=max([torch.maximum(o.float().abs(), r.float().abs())[m].max().item()
+                               for o, r, m in zip(out, ref, over) if m.any()] or [0.0]),
+        kernel32_vs_f64_at_over=at_over(k32), plain32_vs_f64_at_over=at_over(p32),
+        kernel32_vs_f64=max((a.double() - b).abs().max().item() for a, b in zip(k32, r64)),
+        plain32_vs_f64=max((a.double() - b).abs().max().item() for a, b in zip(p32, r64)),
+        bf16_is_kernel32_rounded=all(torch.equal(a.to(torch.bfloat16), o)
+                                     for a, o in zip(k32, out)))
+
+
+def check_qk_prep():
+    """Token merging's q/k prep kernel launched alone at the merged 8x518
+    global block: bf16 within 1 ulp of `qk_prep_plain`, counted at
+    PREP_ULP_FLOOR or above (with `prep_f64_witness`: every element over 1
+    ulp below the floor must lie below 1/64, where both fp32 sides hold 1e-5
+    of the float64 prep), fp32 within 1e-5; faults: the RoPE sine's sign
+    flipped on D/4 dims, gamma x sqrt2.  No library call computes it.  Then
+    the costs of the torch ops around it (`merge_costs`); the key-biased
+    flash kernel at the merged shape is a row of KERNEL_CASES."""
+    import torch
+
+    from iggt_official_tpu_torch.layers.rope import (
+        compute_rope_2d, make_patch_positions, pack_rope_tables,
+    )
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    B, N, H, D = MERGE_GLOBAL
+    h, w, views = PATCH_GRID[N]
+    pos = make_patch_positions(h, w, B * views, N // views - h * w, device=dev).reshape(B, N, 2)
+    cos, sin = pack_rope_tables(compute_rope_2d(pos, D))
+    flipped = sin.clone(memory_format=torch.contiguous_format)
+    flipped[..., :D // 4] *= -1
+    results = []
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        q, k, _ = torch.randn((B, N, 3, H, D), generator=gen, device=dev).to(dtype).unbind(2)
+        norm = tuple(torch.randn((D,), generator=gen, device=dev) * 0.5 + c
+                     for c in (1.0, 0.0, 1.0, 0.0))
+
+        def run_kernel():
+            return fa.qk_prep(q, k, cos, sin, norm)
+
+        def run_plain():
+            return (fa.qk_prep_plain(q, norm[0], norm[1], cos, sin),
+                    fa.qk_prep_plain(k, norm[2], norm[3], cos, sin))
+
+        def error(out, ref):
+            if dtype_name == "bfloat16":
+                return max(bf16_ulps(o, r, PREP_ULP_FLOOR).max().item()
+                           for o, r in zip(out, ref))
+            return max((o - r).abs().max().item() for o, r in zip(out, ref))
+
+        faults = {"rope sign on D/4": lambda: fa.qk_prep(q, k, cos.contiguous(), flipped, norm),
+                  "gamma x sqrt2": lambda: fa.qk_prep(
+                      q, k, cos, sin, (norm[0] * 2 ** 0.5, norm[1], norm[2], norm[3]))}
+        out = run_kernel()
+        torch.cuda.synchronize()
+        ref = run_plain()
+        err = error(out, ref)
+        limit = 1.0 if dtype_name == "bfloat16" else FP32_ABS
+        finite = all(bool(torch.isfinite(o).all().item()) for o in out)
+        fault_errs = {name: error(fn(), ref) for name, fn in faults.items()}
+        caught = all(e > limit for e in fault_errs.values())
+        ms = time_ms(run_kernel)
+        plain_ms = time_ms(run_plain, iters=3, warmup=1)
+        bound_ms, bound_by = qk_prep_bound_ms(B, N, H, D, dtype_name)
+        ok = finite and err <= limit and caught
+        witness = {}
+        if dtype_name == "bfloat16":
+            witness = prep_f64_witness(q, k, cos, sin, norm, out, ref)
+            ok &= (witness["over_1ulp_max_abs"] < PREP_ULP_FLOOR
+                   and witness["kernel32_vs_f64_at_over"] <= FP32_ABS
+                   and witness["plain32_vs_f64_at_over"] <= FP32_ABS)
+        unit = "bf16 ulps" if dtype_name == "bfloat16" else "abs"
+        log(f"[kernels] qk_prep (alone)          merged global block, 8 views 518px "
+            f"{(B, N, H, D)} {dtype_name:8s} max_err={err:.3e} {unit} (limit {limit:.0e}) "
+            f"{'ok' if ok else 'FAIL'} | ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+            f"{100 * bound_ms / ms:.1f}% of the bound) plain_ms={plain_ms:.4f} "
+            f"library_ms=none")
+        log(f"[kernels]   planted faults: "
+            + ", ".join(f"{name} err {e:.3e}" for name, e in fault_errs.items())
+            + (" -- all caught" if caught else " -- NOT ALL CAUGHT"))
+        if witness:
+            log(f"[kernels]   float64 witness: {witness['over_1ulp']} elements over 1 ulp "
+                f"without the floor, all at |x| <= {witness['over_1ulp_max_abs']:.3e} (must be "
+                f"< 1/64); there the fp32 kernel errs {witness['kernel32_vs_f64_at_over']:.3e} "
+                f"and fp32 plain {witness['plain32_vs_f64_at_over']:.3e} abs against float64 "
+                f"(limit {FP32_ABS:.0e}; everywhere {witness['kernel32_vs_f64']:.3e} / "
+                f"{witness['plain32_vs_f64']:.3e}); bf16 kernel output = its fp32 value rounded: "
+                f"{witness['bf16_is_kernel32_rounded']}")
+        results.append(dict(
+            kernel="qk_prep", label=f"merged global block q/k prep, {dtype_name}, 8 views 518px",
+            shape=[B, N, H, D], dtype=dtype_name, key_bias=False,
+            max_abs_err=max((o.float() - r.float()).abs().max().item()
+                            for o, r in zip(out, ref)),
+            err=err, err_unit=unit, limit=limit, fault_errs=fault_errs, ok=ok, ms=ms,
+            plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+        del q, k, out, ref
+
+    merge_costs(gen)
+    torch.cuda.empty_cache()
+    return results
+
 
 NN1_REF = 150_000        # the clustering subsample (`ClusteringConfig` budget)
 NN1_COMPARE = 65_536     # queries compared with the plain version per case
@@ -408,6 +636,7 @@ NN1_NEAR_K = 16          # 16 planted references at q + eps v
 NN1_NEAR_EPS = (1e-4, 1e-3)
 SOURCE = {"flash_attention": "iggt_official_tpu_torch/csrc/flash_attention.cu",
           "flash_attention_fused": "iggt_official_tpu_torch/csrc/flash_attention.cu",
+          "qk_prep": "iggt_official_tpu_torch/csrc/flash_attention.cu",
           "nn1": "iggt_official_tpu_torch/csrc/nn1.cu",
           "fused_ln": "iggt_official_tpu_torch/csrc/fused_ln.cu",
           "bucket_topk": "iggt_official_tpu_torch/csrc/nn1.cu"}
@@ -675,12 +904,12 @@ LN_CASES = tuple(
 FP32_LN_REL = 1e-6
 
 
-def bf16_ulps(out, ref):
-    """|out - ref| in units of the bf16 spacing at max(|out|, |ref|)."""
+def bf16_ulps(out, ref, floor: float = 0.0):
+    """|out - ref| in units of the bf16 spacing at max(|out|, |ref|, floor)."""
     import torch
 
     a, b = out.float(), ref.float()
-    mag = torch.maximum(a.abs(), b.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(max(floor, torch.finfo(torch.bfloat16).tiny))
     return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
@@ -977,7 +1206,12 @@ CASE_KEYS = {
                     "library_ms", "library_queries", "library_kernel_ms", "rechecks_per_pair"),
 }
 CASE_KEYS["flash_attention_fused"] = CASE_KEYS["flash_attention"]
+CASE_KEYS["qk_prep"] = ("label", "shape", "dtype", "max_abs_err", "err", "err_unit", "limit",
+                        "fault_errs", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 LAUNCHES_FROM = {
+    "qk_prep": f"the 8 views 518x518 request with RuntimeConfig(global_merge_r={MERGE_R}): "
+               "one launch per merged global block (the q/k prep kernel alone, which "
+               "flash_attention_fused also runs before its attention)",
     "nn1": "calls of the nn1 wrapper in the 8 views 518x518 request (noise reassignment "
            "and backfill); each call launches nn1_split_kernel once, then "
            "nn1_filter_kernel once",
@@ -989,7 +1223,7 @@ LAUNCHES_FROM = {
 
 def kernels_summary(results, launches, extra):
     out = []
-    for kernel in ("flash_attention", "flash_attention_fused", "nn1", "fused_ln",
+    for kernel in ("flash_attention", "flash_attention_fused", "qk_prep", "nn1", "fused_ln",
                    "bucket_topk"):
         cases = [r for r in results if r["kernel"] == kernel]
         if not cases:
@@ -1041,12 +1275,24 @@ def rel_err(ref, out) -> float:
 
 
 AGREEMENT_VARIANTS = (
-    # (label, trunk dtype, head dtype, fused_ln)
-    ("fp32 trunk", "float32", "float32", False),
-    ("bf16 trunk", "bfloat16", "float32", False),
-    ("bf16 trunk, fused_ln", "bfloat16", "float32", True),
-    ("bf16 trunk, bf16 heads", "bfloat16", "bfloat16", False),
+    # (label, trunk dtype, head dtype, fused_ln, global_merge_r, track head)
+    ("fp32 trunk", "float32", "float32", False, 0, False),
+    ("bf16 trunk", "bfloat16", "float32", False, 0, False),
+    ("bf16 trunk, fused_ln", "bfloat16", "float32", True, 0, False),
+    ("bf16 trunk, bf16 heads", "bfloat16", "bfloat16", False, 0, False),
+    # the merged route (q/k prep kernel alone, merge, key-biased flash
+    # kernel) with each trunk; where the two devices' plans differ (the
+    # scores that decide them are rounded to the trunk's dtype on each), the
+    # card runs again on the CPU's plan, so that only the kernels differ
+    ("fp32 trunk, merged r=40", "float32", "float32", False, 40, False),
+    ("bf16 trunk, merged r=40", "bfloat16", "float32", False, 40, False),
+    # the track head (fp32), two refinement iterations as in
+    # tests/test_torch_track.py: with random weights each iteration
+    # multiplies a difference in its input by 10 to 50
+    ("fp32 trunk, track head", "float32", "float32", False, 0, True),
 )
+AGREEMENT_QUERIES = 16
+AGREEMENT_TRACK_ITERS = 2
 BF16_HEADS_MEDIAN, BF16_HEADS_MAX = 8e-3, 4e-2
 # bf16 heads: the decode heads' bf16 convolutions and matmuls round in other
 # orders on the two devices.  Readings on this model: max 9.6e-3 to 2.6e-2,
@@ -1073,46 +1319,98 @@ def bf16_heads_errors(ref, out):
     return good, text
 
 
+def merge_rank_gap(x, r, protect) -> float:
+    """Gap between the r-th and (r+1)-th best candidate scores of the merge
+    plan on tokens ``x`` (1, N, C): the margin by which the plan's choice of
+    candidates is decided (`ops/token_merge.py::compute_merge_plan`)."""
+    import torch
+
+    xn = x.double() * torch.rsqrt((x.double() ** 2).sum(-1, keepdim=True) + 1e-6)
+    s = torch.einsum("bac,bkc->bak", xn[:, 1::2], xn[:, 0::2])
+    s = s.masked_fill(protect[:, 1::2, None] | protect[:, None, 0::2], -torch.inf)
+    best = s.amax(-1).sort(-1, descending=True).values
+    return (best[:, r - 1] - best[:, r]).min().item()
+
+
 def check_agreement() -> bool:
     """The scaled IGGT on the card (kernels) against the CPU (plain versions),
     same weights and images, in each of AGREEMENT_VARIANTS; launch counts of
     the card's forward must be the path's.  The bf16-heads variant is held
     to its own limits, and its control (against the CPU's fp32 heads, the
-    "bf16 trunk" variant's output) must fail them."""
+    "bf16 trunk" variant's output) must fail them.  A merged variant whose
+    plans differ between the devices logs the gap at the r-th place and
+    runs the card again on the CPU's plan."""
     import torch
 
     from iggt_official_tpu_torch.config import ModelConfig
+    from iggt_official_tpu_torch.models import aggregator as agg_mod
     from iggt_official_tpu_torch.models.vggt import build_model
     from iggt_official_tpu_torch.ops import flash_attention as fa
     from iggt_official_tpu_torch.ops.fused_ln import fused_layernorm
 
     ok = True
-    imgs = np.random.default_rng(SEED).uniform(0, 1, (1, 2, 112, 154, 3)).astype(np.float32)
+    plan_fn = agg_mod.compute_merge_plan
+    rng = np.random.default_rng(SEED)
+    imgs = rng.uniform(0, 1, (1, 2, 112, 154, 3)).astype(np.float32)
+    queries = torch.from_numpy(np.stack(
+        [rng.uniform(0, 153, (1, AGREEMENT_QUERIES)), rng.uniform(0, 111, (1, AGREEMENT_QUERIES))],
+        -1).astype(np.float32))
     weights = None
     refs = {}
-    for label, trunk, head, fused in AGREEMENT_VARIANTS:
+    for label, trunk, head, fused, merge_r, track in AGREEMENT_VARIANTS:
         cfg = dataclasses.replace(
             ModelConfig().scaled(embed_dim=128, depth=2, num_heads=2, vit_depth=2,
                                  img_size=112), trunk_dtype=trunk, head_dtype=head)
+        if track:
+            cfg = dataclasses.replace(cfg, enable_track=True, track=dataclasses.replace(
+                cfg.track, iters=AGREEMENT_TRACK_ITERS))
         cpu = build_model(cfg, "cpu", seed=SEED)
         weights = weights or cpu.state_dict()
-        cpu.load_state_dict(weights)
+        cpu.load_state_dict(weights, strict=not track)
         card = build_model(cfg, "cuda", seed=SEED + 1)
-        card.load_state_dict(weights)
-        with torch.inference_mode():
-            ref = cpu(torch.from_numpy(imgs), fused_ln=fused)
-            fa.flash_attention.launches = fa.flash_attention_fused.launches = 0
-            fused_layernorm.launches = 0
-            out = card(torch.from_numpy(imgs).cuda(), fused_ln=fused)
-            torch.cuda.synchronize()
+        card.load_state_dict(cpu.state_dict())
+        kw = dict(fused_ln=fused, global_merge_r=merge_r)
+        plans = []
+
+        def record_plan(x, r, protect):
+            plans.append((x.cpu(), r, protect.cpu(), plan_fn(x, r, protect)))
+            return plans[-1][3]
+
+        agg_mod.compute_merge_plan = record_plan
+        try:
+            with torch.inference_mode():
+                ref = cpu(torch.from_numpy(imgs), query_points=queries if track else None, **kw)
+                zero_counts()
+                out = card(torch.from_numpy(imgs).cuda(),
+                           query_points=queries.cuda() if track else None, **kw)
+                torch.cuda.synchronize()
+                if merge_r and not all(torch.equal(a, b.cpu())
+                                       for a, b in zip(plans[0][3], plans[1][3])):
+                    log(f"[agreement]   {label}: the card's plan differs from the CPU's (gap "
+                        f"at the r-th place {merge_rank_gap(*plans[0][:3]):.3e} on the CPU, "
+                        f"{merge_rank_gap(*plans[1][:3]):.3e} on the card); the card runs "
+                        f"again on the CPU's plan")
+                    agg_mod.compute_merge_plan = (
+                        lambda x, r, protect: type(plans[0][3])(*(t.to(x.device)
+                                                                  for t in plans[0][3])))
+                    zero_counts()
+                    out = card(torch.from_numpy(imgs).cuda(),
+                               query_points=queries.cuda() if track else None, **kw)
+                    torch.cuda.synchronize()
+                elif merge_r:
+                    log(f"[agreement]   {label}: card and CPU plans equal (gap at the r-th "
+                        f"place {merge_rank_gap(*plans[0][:3]):.3e})")
+        finally:
+            agg_mod.compute_merge_plan = plan_fn
         agg = cfg.aggregator
-        counts = (fa.flash_attention_fused.launches, fa.flash_attention.launches,
-                  fused_layernorm.launches)
-        want = (2 * agg.depth, agg.vit.depth + 1,
+        counts = (fa.flash_attention_fused.launches, fa.qk_prep.launches,
+                  fa.flash_attention.launches, fused_layernorm.launches)
+        want = (agg.depth if merge_r else 2 * agg.depth, agg.depth if merge_r else 0,
+                agg.vit.depth + 1 + (agg.depth if merge_r else 0),
                 2 * (agg.vit.depth + 2 * agg.depth) if fused else 0)
         refs[label] = ref
-        launch_text = (f"launches fused={counts[0]} flash={counts[1]} fused_ln={counts[2]} "
-                       f"(want {want[0]}, {want[1]}, {want[2]})")
+        launch_text = (f"launches fused={counts[0]} qk_prep={counts[1]} flash={counts[2]} "
+                       f"fused_ln={counts[3]} (want {', '.join(map(str, want))})")
         if head == "bfloat16":
             good, text = bf16_heads_errors(ref, out)
             control_passes, control = bf16_heads_errors(refs["bf16 trunk"], out)
@@ -1123,8 +1421,11 @@ def check_agreement() -> bool:
                 + ("fails the limits, as it must" if not control_passes
                    else "PASSES the limits: they cannot tell bf16 from fp32 heads"))
         else:
-            errs = {k: rel_err(ref[k], out[k]) for k in OUTPUTS}
+            keys = OUTPUTS + (("track", "vis", "conf") if track else ())
+            errs = {k: rel_err(ref[k], out[k]) for k in keys}
             good = all(e < AGREEMENT_TOL[trunk] for e in errs.values()) and counts == want
+            if track:
+                good &= bool(torch.equal(out["track"][:, 0].cpu(), queries))
             log(f"[agreement] scaled IGGT, {label}, 2 views 112x154: card vs CPU max rel err "
                 f"{max(errs.values()):.3e} (limit {AGREEMENT_TOL[trunk]:.0e}); "
                 + ", ".join(f"{k}={e:.2e}" for k, e in errs.items())
@@ -1386,13 +1687,14 @@ def export_problems(out_dir: str, S: int, with_gt: bool):
 
 BUCKETS = (("flash attention (ours)", ("flash_kernel",)),
            ("fused LayerNorm (ours)", ("ln_kernel",)),
+           ("token merge (segment sums)", ("segment_reduce",)),
            ("convolution", ("fprop", "dgrad", "conv", "cudnn", "winograd", "fft")),
            ("matmul", ("gemm", "cutlass", "xmma", "matmul")),
            ("LayerNorm / softmax / reductions", ("reduce", "norm", "softmax")))
 
 
 def profile_forward(label, model, x, fwd_s: float, fused_ln: bool = False,
-                    top: int = 10) -> None:
+                    top: int = 10, **kw) -> None:
     """Device time by kernel over one forward (torch.profiler), grouped into
     buckets by kernel name, and the device's busy share of the unprofiled
     forward's wall time."""
@@ -1401,7 +1703,7 @@ def profile_forward(label, model, x, fwd_s: float, fused_ln: bool = False,
 
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model(x, fused_ln=fused_ln)
+        model(x, fused_ln=fused_ln, **kw)
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -1446,7 +1748,7 @@ def zero_counts():
     from iggt_official_tpu_torch.ops.fused_ln import fused_layernorm
     from iggt_official_tpu_torch.ops.nn1 import nn1
 
-    fa.flash_attention.launches = fa.flash_attention_fused.launches = 0
+    fa.flash_attention.launches = fa.flash_attention_fused.launches = fa.qk_prep.launches = 0
     nn1.launches = fused_layernorm.launches = 0
 
 
@@ -1456,8 +1758,8 @@ def read_counts():
     from iggt_official_tpu_torch.ops.nn1 import nn1
 
     return {"flash_attention_fused": fa.flash_attention_fused.launches,
-            "flash_attention": fa.flash_attention.launches, "nn1": nn1.launches,
-            "fused_ln": fused_layernorm.launches}
+            "flash_attention": fa.flash_attention.launches, "qk_prep": fa.qk_prep.launches,
+            "nn1": nn1.launches, "fused_ln": fused_layernorm.launches}
 
 
 def plain_prep_global_attention(q, k, v, key_bias=None, rope_cos=None, rope_sin=None,
@@ -1582,13 +1884,16 @@ def run_requests(launches_out: dict, extra: dict) -> bool:
                 problems.append(f"launches {counts}, want fused {want[0]} and flash {want[1]}")
             if counts["fused_ln"]:
                 problems.append("fused_ln launched with RuntimeConfig(fused_ln=False)")
+            if counts["qk_prep"]:
+                problems.append("the prep kernel launched alone without token merging")
             if S * H * W > BUDGET and counts["nn1"] < 1:
                 problems.append("no nn1 launch although M exceeds the subsample budget")
             problems += export_problems(out_dir, S, with_gt)
             if with_gt and "evaluation" not in results:
                 problems.append("no evaluation although the scene has ground truth")
             ok &= not problems
-            launches_out.update({k: v for k, v in counts.items() if k != "fused_ln"})
+            launches_out.update({k: v for k, v in counts.items()
+                                 if k not in ("fused_ln", "qk_prep")})
             masks = preds["instance_masks"]
             log(f"[requests] {label}{' (with ground truth)' if with_gt else ''}: request "
                 f"{wall:.3f} s ({S / wall:.2f} views/s), forward {fwd:.3f} s "
@@ -1677,8 +1982,233 @@ def run_requests(launches_out: dict, extra: dict) -> bool:
                         fused_ln=True)
         profile_forward(f'{main} head_dtype="bfloat16"', bf16.model, x,
                         med['head_dtype="bfloat16"'])
-        del bf16
+        del bf16, p
+        torch.cuda.empty_cache()
+        ok &= run_merged_request(proc, scene, x, tmp, base_preds, launches_out)
+        ok &= run_long_sequence(proc.model)
+        ok &= run_track_forward(proc, x)
     return ok
+
+
+def merged_forward_want(cfg, S: int):
+    """(fused, qk_prep, flash) launches of one merged forward of S views: the
+    frame blocks fused, the global blocks' prep alone and key-biased flash,
+    the DINOv2 blocks and the part head's flash (once per view chunk)."""
+    from iggt_official_tpu_torch.models.vggt import _view_chunks
+
+    agg = cfg.aggregator
+    parts = len(_view_chunks(S, cfg.part.frames_chunk_size))
+    return agg.depth, agg.depth, agg.depth + agg.vit.depth + parts
+
+
+def run_merged_request(proc, scene, x, tmp, base_preds, launches_out) -> bool:
+    """The 8x518 scene through `process_scene` with
+    RuntimeConfig(global_merge_r=MERGE_R): its file set, launch counts (set
+    to 0 just before, read just after), the difference of depth and world
+    points from the exact request (log only: the weights are random); then
+    the bare merged and exact forwards timed in turns (4 each after a
+    warm-up), of which two merged forwards must give equal bytes."""
+    import torch
+
+    from iggt_official_tpu_torch.config import RuntimeConfig
+    from iggt_official_tpu_torch.ops.token_merge import merge_count, protected_tokens
+
+    S, H, W = x.shape[1:4]
+    proc.runtime = RuntimeConfig(image_size=(W, H), global_merge_r=MERGE_R)
+    out_dir = os.path.join(tmp, "out_merged")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t = time.perf_counter()
+    results = proc.process_scene(scene, out_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    preds = results["predictions"]
+    problems, zero_fov = check_outputs(preds, S, H, W)
+    want = merged_forward_want(proc.cfg, S)
+    got = (counts["flash_attention_fused"], counts["qk_prep"], counts["flash_attention"])
+    if got != want or counts["nn1"] < 1 or counts["fused_ln"]:
+        problems.append(f"launches {counts}, want fused/qk_prep/flash {want}, nn1 >= 1")
+    problems += export_problems(out_dir, S, False)
+    launches_out["qk_prep"] = counts["qk_prep"]
+    diffs = {k: (rel_err(torch.from_numpy(base_preds[k]), torch.from_numpy(preds[k])),
+                 median_rel(torch.from_numpy(base_preds[k]), torch.from_numpy(preds[k])))
+             for k in ("depth", "world_points")}
+    agg = proc.cfg.aggregator
+    P = agg.patch_start_idx + (H // agg.patch_size) * (W // agg.patch_size)
+    r = merge_count(MERGE_R, protected_tokens(S, P, agg.patch_start_idx))
+    log(f"[requests] {S} views {W}x{H}, global_merge_r={MERGE_R} (r = {r} of "
+        f"{merge_count(S * P, protected_tokens(S, P, agg.patch_start_idx))} candidates, "
+        f"Nk = {S * P - r} keys): request {wall:.3f} s, peak {peak:.2f} GiB allocated; launches "
+        f"fused={got[0]} qk_prep={got[1]} flash={got[2]} nn1={counts['nn1']} (want "
+        f"{want[0]}, {want[1]}, {want[2]}, >= 1); merged vs exact request (max / median "
+        f"rel, random weights, no limit): "
+        + ", ".join(f"{k} {a:.3e} / {m:.3e}" for k, (a, m) in diffs.items())
+        + f"; outputs and files {'ok' if not problems else problems}"
+        + (f" (views with zero fov: {zero_fov})" if zero_fov else ""))
+
+    times = {"exact": [], f"merged r={MERGE_R}": []}
+    runs = (("exact", lambda: proc.model(x)),
+            (f"merged r={MERGE_R}", lambda: proc.model(x, global_merge_r=MERGE_R)))
+    with torch.inference_mode():
+        first, second = runs[1][1](), runs[1][1]()
+        torch.cuda.synchronize()
+        same = all(torch.equal(first[k], second[k]) for k in first
+                   if isinstance(first[k], torch.Tensor))
+        del first, second
+        runs[0][1]()
+        for r in range(4):
+            for name, fn in (runs if r % 2 == 0 else runs[::-1]):
+                times[name].append(wall_s(fn))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    if not same:
+        problems.append("two merged forwards differ")
+    log(f"[requests] {S} views {W}x{H} bare forward, exact vs merged (median of 4, in turns): "
+        + ", ".join(f"{k} {v:.4f} s ({S / v:.2f} views/s, {100 * (v / med['exact'] - 1):+.1f}%)"
+                    for k, v in med.items())
+        + f"; two merged forwards {'equal bytes' if same else 'DIFFER'}; all runs "
+        + json.dumps({k: [round(t, 4) for t in v] for k, v in times.items()}))
+    profile_forward(f"{S} views {W}x{H} merged r={MERGE_R}", proc.model, x,
+                    med[f"merged r={MERGE_R}"], global_merge_r=MERGE_R)
+    proc.runtime = RuntimeConfig(image_size=(W, H))
+    return not problems
+
+
+LONG_VIEWS, LONG_HW, LONG_MERGE_R = 32, (336, 504), 8192
+
+
+def run_long_sequence(model) -> bool:
+    """32 views at 504x336 (N = 27,808 global tokens) through the bare
+    forward, merged at r = LONG_MERGE_R and exact, timed in turns (merged,
+    exact, exact, merged after a warm-up of each) with the peak memory of
+    each; outputs finite, launch counts of a merged forward the route's."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    x = torch.rand((1, LONG_VIEWS, *LONG_HW, 3), generator=gen, device="cuda")
+    runs = {f"merged r={LONG_MERGE_R}": dict(global_merge_r=LONG_MERGE_R), "exact": {}}
+    times = {k: [] for k in runs}
+    peaks, problems = {}, []
+    with torch.inference_mode():
+        for name, kw in runs.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            out = model(x, **kw)
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+            counts = read_counts()
+            bad = [k for k, v in out.items() if isinstance(v, torch.Tensor)
+                   and not bool(torch.isfinite(v).all().item())]
+            if bad:
+                problems.append(f"{name}: {bad} not finite")
+            if kw:
+                want = merged_forward_want(model.cfg, LONG_VIEWS)
+                got = (counts["flash_attention_fused"], counts["qk_prep"],
+                       counts["flash_attention"])
+                if got != want:
+                    problems.append(f"{name}: launches {got}, want {want}")
+            del out
+        order = list(runs)
+        for name in order + order[::-1]:
+            times[name].append(wall_s(lambda: model(x, **runs[name])))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    agg = model.cfg.aggregator
+    P = agg.patch_start_idx + (LONG_HW[0] // agg.patch_size) * (LONG_HW[1] // agg.patch_size)
+    log(f"[requests] {LONG_VIEWS} views {LONG_HW[1]}x{LONG_HW[0]} bare forward (N = "
+        f"{LONG_VIEWS * P} global tokens; median of 2, in turns): "
+        + ", ".join(f"{k} {v:.4f} s ({LONG_VIEWS / v:.2f} views/s, peak {peaks[k]:.2f} GiB)"
+                    for k, v in med.items())
+        + f"; merged {100 * (med[order[0]] / med['exact'] - 1):+.1f}%; all runs "
+        + json.dumps({k: [round(t, 4) for t in v] for k, v in times.items()})
+        + f"; {'ok' if not problems else problems}")
+    del x
+    torch.cuda.empty_cache()
+    return not problems
+
+
+TRACK_GRID = 16     # 16 x 16 = 256 query points on a grid in view 0
+
+
+def run_track_forward(proc, x) -> bool:
+    """The full-width IGGT with enable_track=True (the trunk and heads of
+    ``proc.model``, the track head from the seed) at 8x518 with 256 query
+    points on a grid in view 0: output shapes, finite values, vis and conf
+    in [0, 1], view 0's track equal to the query points; the forward's time
+    (after a warm-up) and the track head's share of it (CUDA events around
+    the head's call), and the peak memory."""
+    import torch
+
+    from iggt_official_tpu_torch.models.vggt import build_model
+
+    S, H, W = x.shape[1:4]
+    t0 = time.time()
+    cfg = dataclasses.replace(proc.cfg, enable_track=True)
+    model = build_model(cfg, "cuda", seed=SEED)
+    model.load_state_dict(proc.model.state_dict(), strict=False)
+    proc.model.to("cpu")
+    torch.cuda.empty_cache()
+    built = time.time() - t0
+    weights = torch.cuda.memory_allocated() / 2 ** 30
+    g = (torch.arange(TRACK_GRID, device="cuda", dtype=torch.float32) + 0.5) / TRACK_GRID
+    qp = torch.stack(torch.meshgrid(g * (W - 1), g * (H - 1), indexing="xy"), -1)
+    qp = qp.reshape(1, -1, 2)
+    events, peaks = [], []
+
+    def mark(*_):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    def peak_so_far(*_):
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    head = model.track_head
+    hooks = [head.register_forward_pre_hook(mark), head.register_forward_hook(mark),
+             head.register_forward_pre_hook(peak_so_far),
+             head.feature_extractor.register_forward_hook(peak_so_far),
+             head.tracker.register_forward_hook(peak_so_far)]
+    with torch.inference_mode():
+        model(x, query_points=qp)
+        torch.cuda.synchronize()
+        events.clear()
+        peaks.clear()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = model(x, query_points=qp)
+        end.record()
+        torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    fwd_ms = start.elapsed_time(end)
+    head_ms = events[0].elapsed_time(events[1])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    N = qp.shape[1]
+    problems = []
+    for k, shape in (("track", (1, S, N, 2)), ("vis", (1, S, N)), ("conf", (1, S, N))):
+        if tuple(out[k].shape) != shape:
+            problems.append(f"{k} {tuple(out[k].shape)} != {shape}")
+        if not bool(torch.isfinite(out[k]).all().item()):
+            problems.append(f"{k} not finite")
+    for k in ("vis", "conf"):
+        if not (out[k].min().item() >= 0 and out[k].max().item() <= 1):
+            problems.append(f"{k} outside [0, 1]")
+    if not torch.equal(out["track"][:, 0], qp):
+        problems.append("view 0's track differs from the query points")
+    moved = (out["track"][:, 1:] - qp[:, None]).norm(dim=-1)
+    log(f"[requests] {S} views {W}x{H} with the track head, {N} query points: forward "
+        f"{fwd_ms:.1f} ms, of it the track head {head_ms:.1f} ms "
+        f"({100 * head_ms / fwd_ms:.1f}%), peak {peak:.2f} GiB allocated (weights "
+        f"{weights:.2f} GiB; peak so far before the track head {peaks[0]:.2f}, after its "
+        f"DPT feature extractor {peaks[1]:.2f}, after the tracker {peaks[2]:.2f}; model "
+        f"built in {built:.1f} s); tracks moved median {moved.median().item():.2f} px in views 1-{S - 1}, "
+        f"vis mean {out['vis'].mean().item():.3f}, conf mean {out['conf'].mean().item():.3f}; "
+        f"{'ok' if not problems else problems}")
+    del model, out
+    torch.cuda.empty_cache()
+    proc.model.to("cuda")
+    return not problems
 
 
 # ---------------------------------------------------------------------------
@@ -1734,7 +2264,8 @@ def main(phases=("device", "build", "kernels", "agreement", "postproc", "request
     results = []
     ok = True
     if "kernels" in phases:
-        results = check_kernels() + check_nn1() + check_fused_ln() + check_bucket_topk()
+        results = (check_kernels() + check_qk_prep() + check_nn1() + check_fused_ln()
+                   + check_bucket_topk())
         ok &= all(r["ok"] for r in results)
     if "agreement" in phases:
         ok &= check_agreement()

@@ -3,7 +3,9 @@
 Counterpart of `iggt_official_tpu/app/demo.py` (`IGGTProcessor`): load and
 resize the scene's images, one forward of the IGGT model (bf16 trunk through
 the hand-written attention kernels, and with ``RuntimeConfig(fused_ln=True)``
-its pre-norms through the fused LayerNorm kernel; decode heads in
+its pre-norms through the fused LayerNorm kernel; with
+``RuntimeConfig(global_merge_r=r)`` (``--merge_tokens r``) the global blocks
+attend over K/V with r tokens merged away, `ops/token_merge.py`; decode heads in
 ``ModelConfig.head_dtype``, fp32 by default), then `_post_process`: decode
 the poses, unproject the depth maps, normalize the part features and colour
 them by PCA, smooth them over the world points (Morton-window kNN), and
@@ -22,7 +24,7 @@ Usage:
     python -m iggt_official_tpu_torch.app.demo --target_dir <scene> \
         --save_dir out [--model_path weights.pt] [--preset large] \
         [--exact_clustering] [--image_size 504 336] [--conf_threshold 0.3] \
-        [--head_dtype float32|bfloat16] [--device cuda]
+        [--merge_tokens R] [--head_dtype float32|bfloat16] [--device cuda]
 
 Weights are random (from a seed) unless ``--model_path`` names a checkpoint
 in the reference layout: the published IGGT checkpoint (bare, wrapped in
@@ -63,6 +65,7 @@ from iggt_official_tpu_torch.models.vggt import IGGT, build_model
 from iggt_official_tpu_torch.ops.cluster import cluster_features_to_masks_mv, trace_stage
 from iggt_official_tpu_torch.ops.knn import knn_smooth_features
 from iggt_official_tpu_torch.ops.pca import normalize_and_pca
+from iggt_official_tpu_torch.ops.token_merge import merge_count, protected_tokens
 from iggt_official_tpu_torch.utils.checkpoint import load_reference_state, read_checkpoint
 from iggt_official_tpu_torch.utils.colormaps import get_cmap
 from iggt_official_tpu_torch.utils.device import resolve_device
@@ -189,8 +192,15 @@ class IGGTProcessor:
         W, H = self.runtime.image_size
         images = load_and_preprocess_images(
             scene_image_paths(target_dir), mode="resize", resize_target_size=(W, H))
+        r = self.runtime.global_merge_r
+        if r:
+            agg = self.cfg.aggregator
+            S, h, w = images.shape[:3]
+            P = agg.patch_start_idx + (h // agg.patch_size) * (w // agg.patch_size)
+            logger.info("token merging: r = %d of the %d requested (%d views of %d tokens)",
+                        merge_count(r, protected_tokens(S, P, agg.patch_start_idx)), r, S, P)
         out = self.model(torch.from_numpy(images[None]).to(self.device),
-                         fused_ln=self.runtime.fused_ln)
+                         fused_ln=self.runtime.fused_ln, global_merge_r=r)
         preds: Dict[str, Any] = {k: v for k, v in out.items() if k != "pose_enc_list"}
         preds["images"] = images
         return preds
@@ -396,6 +406,9 @@ def main() -> None:
     parser.add_argument("--conf_threshold", type=float, default=0.3,
                         help="GLB export: drop points below this percentile of "
                              "confidence")
+    parser.add_argument("--merge_tokens", type=int, default=0,
+                        help="merge this many K/V tokens out of every global "
+                             "attention block (FastVGGT-style); 0 = exact")
     parser.add_argument("--head_dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="decode-head compute dtype: float32 is the "
@@ -407,7 +420,8 @@ def main() -> None:
         image_size=tuple(args.image_size),
         conf_threshold=args.conf_threshold,
         clustering=dataclasses.replace(CLUSTERING_PRESETS[args.preset],
-                                       exact=args.exact_clustering))
+                                       exact=args.exact_clustering),
+        global_merge_r=args.merge_tokens)
     model_cfg = dataclasses.replace(ModelConfig(), head_dtype=args.head_dtype)
     processor = IGGTProcessor(args.model_path, model_cfg=model_cfg, runtime=runtime,
                               device=args.device)

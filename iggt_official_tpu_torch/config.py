@@ -2,10 +2,9 @@
 
 The model dataclasses keep the JAX package's field names and defaults for
 everything the port builds, so `ModelConfig().scaled(...)` describes the
-same network in both packages.  Fields that select code not ported yet
-(VGGT, the track head, the tracker DPT variant, the upstream-HAT window
-partition, token merging, the TPU mesh and sky masking) are left out until
-that code lands.
+same network in both packages.  Fields that select code not ported yet (the
+upstream-HAT window partition, the TPU mesh and sky masking) are left out
+until that code lands.
 """
 
 from __future__ import annotations
@@ -77,6 +76,11 @@ class DPTConfig:
     intermediate_layer_idx: Tuple[int, ...] = (4, 11, 17, 23)
     pos_embed: bool = True
     use_point_feat: bool = False
+    # the track head's feature extractor: output_conv1 keeps ``features``
+    # channels, the map is resized to 1 / down_ratio of the image and
+    # returned without output_conv2 or an activation
+    down_ratio: int = 1
+    for_tracker: bool = False
     # upper bound on views decoded per chunk: the largest divisor of S
     # within it is used (models/vggt.py `_view_chunking`)
     frames_chunk_size: int = 8
@@ -115,16 +119,39 @@ class PartHeadConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class ModelConfig:
-    """Full IGGT model assembly (camera, depth, point and part heads)."""
+class TrackHeadConfig:
+    """CoTracker-style tracker head."""
 
+    dim_in: int = 2048
+    patch_size: int = 14
+    features: int = 128
+    iters: int = 4
+    corr_levels: int = 7
+    corr_radius: int = 4
+    hidden_size: int = 384
+    predict_conf: bool = True
+    intermediate_layer_idx: Tuple[int, ...] = (4, 11, 17, 23)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Full IGGT / VGGT model assembly (camera, depth, point, part and track
+    heads, each behind its ``enable_*`` switch)."""
+
+    name: str = "iggt"  # "iggt" | "vggt"
     img_size: int = 518
     patch_size: int = 14
     embed_dim: int = 1024
     aggregator: AggregatorConfig = dataclasses.field(default_factory=AggregatorConfig)
+    enable_camera: bool = True
+    enable_depth: bool = True
+    enable_point: bool = True
+    enable_part: bool = True
+    enable_track: bool = False
     intermediate_layer_idx: Tuple[int, ...] = (4, 11, 17, 23)
     camera: CameraHeadConfig = dataclasses.field(default_factory=CameraHeadConfig)
     part: PartHeadConfig = dataclasses.field(default_factory=PartHeadConfig)
+    track: TrackHeadConfig = dataclasses.field(default_factory=TrackHeadConfig)
     # the trunk runs in trunk_dtype (bf16), LayerNorms and RoPE in fp32; the
     # depth / point / part decode heads compute in head_dtype ("float32" is
     # the reference's autocast-disabled island, "bfloat16" the fast mode);
@@ -155,7 +182,7 @@ class ModelConfig:
             activation="inv_log",
             conf_activation="expp1",
             intermediate_layer_idx=self.intermediate_layer_idx,
-            use_point_feat=True,
+            use_point_feat=(self.name == "iggt"),
             frames_chunk_size=self.frames_chunk_size,
         )
 
@@ -186,6 +213,9 @@ class ModelConfig:
                 num_heads=min(num_heads, 2 * embed_dim // 32)),
             part=dataclasses.replace(
                 self.part, dim_in=2 * embed_dim,
+                intermediate_layer_idx=idx[:4]),
+            track=dataclasses.replace(
+                self.track, dim_in=2 * embed_dim,
                 intermediate_layer_idx=idx[:4]),
         )
 
@@ -222,3 +252,8 @@ class RuntimeConfig:
     # (`ops/fused_ln.py`, two-pass variance) instead of the fast-variance
     # `LayerNorm`; off by default, as in the JAX package
     fused_ln: bool = False
+    # merge this many K/V tokens out of every global-attention block
+    # (`ops/token_merge.py`, the demo's --merge_tokens); 0 = exact attention.
+    # Clamped to the unprotected candidates.  Worth it at 32+ views, where
+    # the tokens of many views repeat each other.
+    global_merge_r: int = 0

@@ -27,7 +27,12 @@
 //     and of k, four rows' loads in flight per warp (coalesced loads, warp-shuffle
 //     sums; rot_half takes the partner lane, lane ^ D/4, with a shuffle), each row
 //     written once, rounded once, into contiguous scratch that the wgmma kernel then
-//     reads.  The TPU kernel prepped K inside the attention loop, once per 512-row
+//     reads.  It also runs alone (iggt_flash_qk_prep, bf16 or fp32 rows): token
+//     merging averages the prepped K rows before attention, so the merged global
+//     blocks prep q and k here, merge, and then call the flash kernel with the
+//     merged keys' log-size bias.  Alone it is bound by bytes: each row read and
+//     written once, 4 B N H D bytes per dtype byte (0.027 ms for the bf16 global
+//     block at 3.35 TB/s).  The TPU kernel prepped K inside the attention loop, once per 512-row
 //     query block, which one 2048-key block made cheap there; on Hopper's 128-row
 //     query tiles that would prep each K row 11x (frame) to 86x (global) over, so
 //     every row is prepped exactly once.
@@ -80,7 +85,7 @@ constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const void* q; const void* k; const void* v; void* o;
-  const float* key_bias;                        // (B, Nk) or null
+  const float* key_bias;                        // (B, bias_stride(Nk)) times log2(e), or null
   const float* cos; const float* sin;           // (B, N, D) fp32, last dim contiguous
   long long rope_sb, rope_sn;
   const float* gq; const float* bq; const float* gk; const float* bk;  // (D,) each
@@ -145,18 +150,26 @@ __device__ __forceinline__ void prep_row(float (&x)[D / 32], const Args& a, int 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 q/k prep (fused variant): every row once, into contiguous (B, N, H, D) scratch.
+// q/k prep (fused variant, and alone): every row once, into contiguous (B, N, H, D)
+// rows of the input's type.
 
 constexpr int PREP_WARPS = 8;
 constexpr int PREP_ROWS = 4;                     // rows per warp, loaded before any is prepped
 
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ float from_f32(float x) { return x; }
+
 // blockIdx.y: 0 preps q, 1 preps k; a warp takes PREP_ROWS output rows (b, n, h)
 // and issues all their loads first, so enough bytes are in flight to keep device
-// memory busy.
-template <int D>
+// memory busy.  T: __nv_bfloat16 or float, in and out.
+template <int D, typename T>
 __global__ void __launch_bounds__(PREP_WARPS * 32)
-    flash_kernel_qk_prep(const Args a, __nv_bfloat16* q_out, __nv_bfloat16* k_out) {
-  using T = __nv_bfloat16;
+    flash_kernel_qk_prep(const Args a, T* q_out, T* k_out) {
   constexpr int E = D / 32;
   const bool is_k = blockIdx.y == 1;
   const int N = is_k ? a.Nk : a.Nq;
@@ -178,7 +191,7 @@ __global__ void __launch_bounds__(PREP_WARPS * 32)
       bs[r] = row / (a.H * N);
       const T* src = base + bs[r] * sb + ns[r] * sn + h * sh;
 #pragma unroll
-      for (int e = 0; e < E; ++e) x[r][e] = __bfloat162float(src[e * 32 + lane]);
+      for (int e = 0; e < E; ++e) x[r][e] = to_f32(src[e * 32 + lane]);
     }
   }
   // every row is prepped before any is stored, so the compiler may issue all rows'
@@ -196,7 +209,7 @@ __global__ void __launch_bounds__(PREP_WARPS * 32)
     if (row >= rows) break;                      // warp-uniform
     T* dst = out + (long long)row * D;
 #pragma unroll
-    for (int e = 0; e < E; ++e) dst[e * 32 + lane] = __float2bfloat16(x[r][e]);
+    for (int e = 0; e < E; ++e) dst[e * 32 + lane] = from_f32<T>(x[r][e]);
   }
 }
 
@@ -307,6 +320,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[
 }
 
 
+// The key bias as the kernels read it: each row padded with zeros to a multiple
+// of 128 keys (so every key tile of both kernels is whole and its pairs of keys
+// 2t, 2t + 1 are one aligned float2) and multiplied by log2(e) beforehand.
+__host__ __device__ inline long long bias_stride(int Nk) { return ((long long)Nk + 127) / 128 * 128; }
+
 // Online softmax of one 64 x NK logit tile in the wgmma accumulator layout, for
 // this thread's rows g and g + 8: the running max m (log2 units: logits times
 // D^-1/2 log2(e)), this thread's share l of the running sums, the factor al that
@@ -319,17 +337,26 @@ struct Softmax {
   __device__ __forceinline__ void update(float (&sc)[NK / 2], int k0, const Args& a, int b,
                                          int t) {
     float mult = a.scale * wg::LOG2E;
-    if (HAS_BIAS || k0 + NK > a.Nk) {        // scale, add the bias, mask keys past Nk
+    if (HAS_BIAS) {                          // scale and add the bias: one float2 per key pair
+      const float* kb = a.key_bias + b * bias_stride(a.Nk) + k0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j) {
+        const float2 bias = *reinterpret_cast<const float2*>(kb + 8 * j);
+        sc[4 * j] = fmaf(sc[4 * j], mult, bias.x);
+        sc[4 * j + 1] = fmaf(sc[4 * j + 1], mult, bias.y);
+        sc[4 * j + 2] = fmaf(sc[4 * j + 2], mult, bias.x);
+        sc[4 * j + 3] = fmaf(sc[4 * j + 3], mult, bias.y);
+      }
+      mult = 1.f;
+    }
+    if (k0 + NK > a.Nk) {                    // the last tile: scale, mask keys past Nk
 #pragma unroll
       for (int j = 0; j < NK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int key = k0 + j * 8 + 2 * t + e;
-          const float bias =
-              HAS_BIAS && key < a.Nk ? a.key_bias[(long long)b * a.Nk + key] * wg::LOG2E : 0.f;
-          const bool out = key >= a.Nk;
-          sc[4 * j + e] = out ? NEG_INF : sc[4 * j + e] * mult + bias;
-          sc[4 * j + 2 + e] = out ? NEG_INF : sc[4 * j + 2 + e] * mult + bias;
+          const bool out = k0 + j * 8 + 2 * t + e >= a.Nk;
+          sc[4 * j + e] = out ? NEG_INF : sc[4 * j + e] * mult;
+          sc[4 * j + 2 + e] = out ? NEG_INF : sc[4 * j + 2 + e] * mult;
         }
       }
       mult = 1.f;
@@ -946,6 +973,19 @@ cudaError_t run_fp32(const Args& a, float* scratch, int fault, cudaStream_t stre
               : launch_tf32<D, false, 3>(tq, tk, tv, a, stream);
 }
 
+// The q/k prep of every q and k row into contiguous (B, Nq, H, D) / (B, Nk, H, D)
+// rows of type T.
+template <int D, typename T>
+cudaError_t launch_qk_prep(const Args& a, void* q_out, void* k_out, cudaStream_t stream) {
+  const long long rows = (long long)a.B * (a.Nq > a.Nk ? a.Nq : a.Nk) * a.H;
+  if (rows > 0x7fffffffLL - PREP_WARPS * PREP_ROWS) return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((rows + PREP_WARPS * PREP_ROWS - 1) /
+                                     (PREP_WARPS * PREP_ROWS));
+  flash_kernel_qk_prep<D, T><<<dim3(blocks, 2), PREP_WARPS * 32, 0, stream>>>(
+      a, static_cast<T*>(q_out), static_cast<T*>(k_out));
+  return cudaGetLastError();
+}
+
 // bf16: when fused, the prep kernel writes prepped q / k to the scratch, which the
 // wgmma kernel then attends over.
 template <int D>
@@ -953,13 +993,7 @@ cudaError_t run_bf16(const Args& a, bool fused, bool has_bias, void* q_prep, voi
                      cudaStream_t stream) {
   Args b = a;
   if (fused) {
-    const long long rows = (long long)a.B * (a.Nq > a.Nk ? a.Nq : a.Nk) * a.H;
-    if (rows > 0x7fffffffLL - PREP_WARPS * PREP_ROWS) return cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)((rows + PREP_WARPS * PREP_ROWS - 1) /
-                                       (PREP_WARPS * PREP_ROWS));
-    flash_kernel_qk_prep<D><<<dim3(blocks, 2), PREP_WARPS * 32, 0, stream>>>(
-        a, static_cast<__nv_bfloat16*>(q_prep), static_cast<__nv_bfloat16*>(k_prep));
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = launch_qk_prep<D, __nv_bfloat16>(a, q_prep, k_prep, stream);
     if (err != cudaSuccess) return err;
     b.q = q_prep;
     b.k = k_prep;
@@ -973,13 +1007,18 @@ cudaError_t run_bf16(const Args& a, bool fused, bool has_bias, void* q_prep, voi
 
 extern "C" {
 
+// Floats per row of the key bias the kernels read (Nk padded to 128).
+long long iggt_flash_bias_stride(int Nk) { return bias_stride(Nk); }
+
 // Floats of the scratch the fp32 path takes (q_prep): the TF32 split of q, k
 // and V^T.
 long long iggt_flash_fp32_scratch_floats(int B, int H, int Nq, int Nk, int head_dim) {
   return fp32_scratch_floats(B, H, Nq, Nk, head_dim);
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  bf16 with use_norm or
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  key_bias (or null):
+// (B, iggt_flash_bias_stride(Nk)) fp32, each row the bias times log2(e), zero past
+// Nk, 8-byte aligned.  bf16 with use_norm or
 // use_rope preps q and k into q_prep / k_prep (contiguous (B, Nq, H, D) and
 // (B, Nk, H, D) scratch) first; fp32 always splits q, k and V^T into q_prep
 // (iggt_flash_fp32_scratch_floats floats, 16-byte aligned; k_prep unused).
@@ -1026,6 +1065,50 @@ int iggt_flash_attention(
   } else if (dtype == 1) {
     err = head_dim == 32 ? run_bf16<32>(a, fused, has_bias, q_prep, k_prep, s)
                          : run_bf16<64>(a, fused, has_bias, q_prep, k_prep, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+// The q/k prep alone (token merging's route): fp32 head-dim LayerNorm (use_norm)
+// then 2D RoPE (use_rope) of every q and k row, one rounding to the input's type,
+// into q_out (contiguous (B, Nq, H, D)) and k_out (contiguous (B, Nk, H, D)).
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  Returns a
+// cudaError_t (0 on success).
+int iggt_flash_qk_prep(
+    int dtype, int head_dim, int use_norm, int use_rope,
+    const void* q, const void* k,
+    const float* rope_cos, const float* rope_sin, long long rope_sb, long long rope_sn,
+    const float* gq, const float* bq, const float* gk, const float* bk,
+    void* q_out, void* k_out,
+    int B, int H, int Nq, int Nk,
+    long long q_sb, long long q_sn, long long q_sh,
+    long long k_sb, long long k_sn, long long k_sh,
+    float eps, void* stream) {
+  if (Nq <= 0 || Nk <= 0 || B <= 0 || H <= 0 || !q_out || !k_out) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (use_norm && !(gq && bq && gk && bk)) return (int)cudaErrorInvalidValue;
+  if (use_rope && !(rope_cos && rope_sin)) return (int)cudaErrorInvalidValue;
+  if (head_dim != 32 && head_dim != 64) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.q = q; a.k = k;
+  a.cos = rope_cos; a.sin = rope_sin; a.rope_sb = rope_sb; a.rope_sn = rope_sn;
+  a.gq = gq; a.bq = bq; a.gk = gk; a.bk = bk;
+  a.use_norm = use_norm; a.use_rope = use_rope;
+  a.B = B; a.H = H; a.Nq = Nq; a.Nk = Nk;
+  a.q_sb = q_sb; a.q_sn = q_sn; a.q_sh = q_sh;
+  a.k_sb = k_sb; a.k_sn = k_sn; a.k_sh = k_sh;
+  a.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = head_dim == 32 ? launch_qk_prep<32, float>(a, q_out, k_out, s)
+                         : launch_qk_prep<64, float>(a, q_out, k_out, s);
+  } else if (dtype == 1) {
+    err = head_dim == 32 ? launch_qk_prep<32, __nv_bfloat16>(a, q_out, k_out, s)
+                         : launch_qk_prep<64, __nv_bfloat16>(a, q_out, k_out, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -5,7 +5,10 @@ intermediate layers -> LayerNorm -> 1x1 projection -> UV sincos pos-embed
 (x0.1) -> per-level resize (4x, 2x, 1x, 0.5x) -> RefineNet fusion ->
 upsample to full resolution -> output convs -> value / confidence split.
 The decode path computes in ``dtype`` (fp32, or bf16 as the fast mode); the
-token LayerNorm and the output activations stay fp32.  Module names follow the reference checkpoint (`projects`, `resize_layers`,
+token LayerNorm and the output activations stay fp32.  With ``for_tracker``
+(the track head's feature extractor) output_conv1 keeps ``features``
+channels and the head returns that map, resized to the image size over
+``down_ratio``, with no output_conv2 and no activation.  Module names follow the reference checkpoint (`projects`, `resize_layers`,
 `scratch.*`).
 """
 
@@ -68,15 +71,20 @@ class FeatureFusionBlock(nn.Module):
 
 
 def make_fusion_scratch(in_channels: Sequence[int], features: int, output_dim: int,
-                        dtype: torch.dtype = torch.float32) -> nn.Module:
+                        dtype: torch.dtype = torch.float32,
+                        for_tracker: bool = False) -> nn.Module:
     """The reference's `scratch` container: 4 level projections, 4 RefineNet
-    fusion blocks and the output convs, all computing in ``dtype``."""
+    fusion blocks and the output convs, all computing in ``dtype`` (for the
+    tracker only output_conv1, at full width)."""
     scratch = nn.Module()
     for i, c in enumerate(in_channels):
         setattr(scratch, f"layer{i + 1}_rn",
                 Conv2d(c, features, 3, padding=1, bias=False, dtype=dtype))
     for i in range(1, 5):
         setattr(scratch, f"refinenet{i}", FeatureFusionBlock(features, i != 4, dtype))
+    if for_tracker:
+        scratch.output_conv1 = Conv2d(features, features, 3, padding=1, dtype=dtype)
+        return scratch
     scratch.output_conv1 = Conv2d(features, features // 2, 3, padding=1, dtype=dtype)
     scratch.output_conv2 = nn.Sequential(
         Conv2d(features // 2, 32, 3, padding=1, dtype=dtype), nn.ReLU(),
@@ -99,7 +107,8 @@ class DPTHead(nn.Module):
 
     Returns ``(preds (B,S,H,W,out-1), conf (B,S,H,W))``, plus the fusion
     pyramid ``(out2, out3, out4)`` (in ``dtype``) at batch B*S when
-    ``use_point_feat``."""
+    ``use_point_feat``; with ``for_tracker`` the feature map
+    (B, S, H // down_ratio, W // down_ratio, features) alone."""
 
     def __init__(self, cfg: DPTConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -114,7 +123,8 @@ class DPTHead(nn.Module):
             nn.Identity(),
             Conv2d(oc[3], oc[3], 3, stride=2, padding=1, dtype=dtype),
         ])
-        self.scratch = make_fusion_scratch(oc, cfg.features, cfg.output_dim, dtype)
+        self.scratch = make_fusion_scratch(oc, cfg.features, cfg.output_dim, dtype,
+                                           cfg.for_tracker)
 
     def forward(self, tokens_list: Sequence[torch.Tensor], images_hw: Tuple[int, int],
                 patch_start_idx: int):
@@ -134,9 +144,12 @@ class DPTHead(nn.Module):
 
         out1, out2, out3, out4 = fuse_pyramid(self.scratch, levels)
         out = self.scratch.output_conv1(out1)
-        out = bilinear_resize_align_corners(out, (ph * p, pw * p))
+        out = bilinear_resize_align_corners(
+            out, (ph * p // cfg.down_ratio, pw * p // cfg.down_ratio))
         if cfg.pos_embed:
             out = apply_uv_pos_embed(out, W, H)
+        if cfg.for_tracker:
+            return out.reshape(B, S, *out.shape[1:])
         out = self.scratch.output_conv2(out)
         preds, conf = activate_head(out.float(), activation=cfg.activation,
                                     conf_activation=cfg.conf_activation)

@@ -131,7 +131,9 @@ class Attention(nn.Module):
     With qk-norm or RoPE, raw q/k go to ``attn_fn`` with the packed RoPE
     tables and the norm params, and the prep (fp32 LN + RoPE, one rounding)
     happens there -- inside the fused kernel on the card.  Such an
-    ``attn_fn`` must set ``supports_fused_qk_prep``; there is no prep here."""
+    ``attn_fn`` must set ``supports_fused_qk_prep``; there is no prep here.
+    ``forward``'s ``attn_fn`` replaces the module's for one call (the merged
+    global attention of one forward, `ops/token_merge.py`)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  proj_bias: bool = True, qk_norm: bool = False,
@@ -150,13 +152,15 @@ class Attention(nn.Module):
             self.q_norm = self.k_norm = None
         self.proj = Linear(dim, dim, bias=proj_bias, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, rope: Optional[Rope2DTables] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rope: Optional[Rope2DTables] = None,
+                attn_fn: Optional[Callable] = None) -> torch.Tensor:
         B, N, C = x.shape
+        attn_fn = attn_fn or self.attn_fn
         qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.unbind(2)
         qk_norm = self.q_norm is not None
         if rope is not None or qk_norm:
-            if not getattr(self.attn_fn, "supports_fused_qk_prep", False):
+            if not getattr(attn_fn, "supports_fused_qk_prep", False):
                 raise ValueError("qk-norm and RoPE need an attn_fn with "
                                  "supports_fused_qk_prep")
             norm_params = None
@@ -166,10 +170,9 @@ class Attention(nn.Module):
             cos = sin = None
             if rope is not None:
                 cos, sin = pack_rope_tables(rope)
-            out = self.attn_fn(q, k, v, rope_cos=cos, rope_sin=sin,
-                               qk_norm_params=norm_params)
+            out = attn_fn(q, k, v, rope_cos=cos, rope_sin=sin, qk_norm_params=norm_params)
         else:
-            out = self.attn_fn(q, k, v)
+            out = attn_fn(q, k, v)
         return self.proj(out.reshape(B, N, C))
 
 
@@ -225,6 +228,7 @@ class Block(nn.Module):
         return norm(x).to(self.dtype)
 
     def forward(self, x: torch.Tensor, rope: Optional[Rope2DTables] = None,
-                fused_ln: bool = False) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self._pre_norm(self.norm1, x, fused_ln), rope=rope))
+                fused_ln: bool = False, attn_fn: Optional[Callable] = None) -> torch.Tensor:
+        x = x + self.ls1(self.attn(self._pre_norm(self.norm1, x, fused_ln), rope=rope,
+                                   attn_fn=attn_fn))
         return x + self.ls2(self.mlp(self._pre_norm(self.norm2, x, fused_ln)))

@@ -9,7 +9,11 @@ Every block calls ``attn_fn`` (the kernel dispatcher: the flash kernel for
 the DINOv2 blocks, the fused kernel for the frame and global blocks' q/k
 prep, at any length).
 With ``fused_ln=True`` every block's pre-norms (DINOv2, frame, global) go
-through the fused LayerNorm kernel.
+through the fused LayerNorm kernel.  With ``global_merge_r > 0`` the global
+blocks attend over merged keys and values (`ops/token_merge.py`): the plan is
+computed once per forward on the trunk's input tokens in fp32, with view 0
+and every view's camera and register tokens protected, ``r`` clamped to the
+unprotected candidates (one view: no merge); the frame blocks are untouched.
 """
 
 from __future__ import annotations
@@ -24,6 +28,12 @@ from iggt_official_tpu_torch.layers.blocks import Block
 from iggt_official_tpu_torch.layers.rope import compute_rope_2d, make_patch_positions
 from iggt_official_tpu_torch.layers.vit import ConvPatchEmbed, DinoViT
 from iggt_official_tpu_torch.ops.flash_attention import attention
+from iggt_official_tpu_torch.ops.token_merge import (
+    compute_merge_plan,
+    make_merged_attention,
+    merge_count,
+    protected_tokens,
+)
 
 _RESNET_MEAN = (0.485, 0.456, 0.406)
 _RESNET_STD = (0.229, 0.224, 0.225)
@@ -65,8 +75,8 @@ class Aggregator(nn.Module):
         self.frame_blocks = blocks(attn_fn)
         self.global_blocks = blocks(attn_fn)
 
-    def forward(self, images: torch.Tensor,
-                fused_ln: bool = False) -> Tuple[List[torch.Tensor], int]:
+    def forward(self, images: torch.Tensor, fused_ln: bool = False,
+                global_merge_r: int = 0) -> Tuple[List[torch.Tensor], int]:
         cfg = self.cfg
         B, S, H, W, C_in = images.shape
         if C_in != 3:
@@ -90,10 +100,20 @@ class Aggregator(nn.Module):
             rope_frame = compute_rope_2d(positions, C // cfg.num_heads, cfg.rope_freq)
             rope_global = rope_frame.map(lambda t: t.reshape(B, S * P, t.shape[-1]))
 
+        merged_attn = None
+        if global_merge_r > 0:
+            protect = protected_tokens(S, P, psi)
+            r = merge_count(global_merge_r, protect)
+            if r > 0:
+                protect_t = torch.from_numpy(protect).to(images.device).expand(B, S * P)
+                plan = compute_merge_plan(tokens.reshape(B, S * P, C).float(), r, protect_t)
+                merged_attn = make_merged_attention(plan)
+
         outputs: List[torch.Tensor] = []
         for frame_block, global_block in zip(self.frame_blocks, self.global_blocks):
             tokens = frame_block(tokens.reshape(B * S, P, C), rope_frame, fused_ln)
             frame_inter = tokens.reshape(B, S, P, C)
-            tokens = global_block(tokens.reshape(B, S * P, C), rope_global, fused_ln)
+            tokens = global_block(tokens.reshape(B, S * P, C), rope_global, fused_ln,
+                                  attn_fn=merged_attn)
             outputs.append(torch.cat([frame_inter, tokens.reshape(B, S, P, C)], dim=-1))
         return outputs, psi

@@ -34,7 +34,12 @@ class Conv2d(nn.Conv2d):
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """torch ConvTranspose2d applied to NHWC input, computing in ``dtype``;
-    output size (i - 1) * s + k - 2p, as in torch."""
+    output size (i - 1) * s + k - 2p, as in torch.
+
+    cuDNN runs a transposed convolution as a convolution's data gradient, and
+    where the kernel overlaps itself (k > s, the SamProjector's k 4, s 2) its
+    default algorithms sum with atomics, so the same input gave other bytes
+    from run to run on the card.  The call picks a deterministic algorithm."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
                  padding=0, bias: bool = True, dtype: torch.dtype = torch.float32):
@@ -45,8 +50,13 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt), bias,
-                               self.stride, self.padding)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt), bias,
+                                   self.stride, self.padding)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
         return y.permute(0, 2, 3, 1)
 
 

@@ -17,11 +17,16 @@ kernels of that module map onto `csrc/flash_attention.cu`:
   preps every q and k row once, into scratch the wrapper allocates (in fp32
   the same kernel that splits them).
 
+- `qk_prep`: the prep kernel alone, q and k rows prepped into new
+  contiguous tensors of the input's dtype (bf16 or fp32).  Token merging
+  (`ops/token_merge.py`) takes it: the merged global blocks average the
+  prepped K rows, so the prep runs before the merge and the attention after.
+
 The wrappers launch the kernels for CUDA tensors (or raise) and take the
 plain version only for CPU tensors.  Each wrapper counts its calls that
 launch in a plain integer attribute (`flash_attention.launches`,
-`flash_attention_fused.launches`; a fused call is one count for its prep
-and attention launches).
+`flash_attention_fused.launches`, `qk_prep.launches`; a fused call is one
+count for its prep and attention launches).
 
 Dispatch (`attention`) keeps the JAX protocol (`supports_fused_qk_prep`):
 calls that carry RoPE tables or qk-norm params go to the fused wrapper, the
@@ -43,6 +48,7 @@ import torch
 from iggt_official_tpu_torch.ops import cuda_build
 
 HEAD_DIMS = (32, 64)
+LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -96,9 +102,10 @@ def qk_prep_plain(
 
     Mirrors `_qk_prep_xla`.  x: (B, N, H, D); cos/sin: (B, >= N, D) packed
     tables (`layers.rope.pack_rope_tables`), row i for token i, as the
-    kernel reads them."""
+    kernel reads them.  float64 inputs are prepped in float64 (a reference
+    for the fp32 sums)."""
     dt = x.dtype
-    x = x.float()
+    x = x.to(torch.promote_types(dt, torch.float32))
     if gamma is not None:
         mu = x.mean(-1, keepdim=True)
         var = torch.clamp((x * x).mean(-1, keepdim=True) - mu * mu, min=0.0)
@@ -129,6 +136,20 @@ def _kernel():
         + [f, f, i, p]               # scale, eps, fault, stream
     )
     fn.restype = ctypes.c_int
+    prep = lib.iggt_flash_qk_prep
+    prep.argtypes = (
+        [i, i, i, i]                 # dtype, head_dim, use_norm, use_rope
+        + [p, p]                     # q, k
+        + [p, p, ll, ll]             # cos, sin, rope batch / row strides
+        + [p, p, p, p]               # gamma_q, beta_q, gamma_k, beta_k
+        + [p, p]                     # prepped q / k out
+        + [i, i, i, i]               # B, H, Nq, Nk
+        + [ll] * 6                   # q, k strides (batch, row, head)
+        + [f, p]                     # eps, stream
+    )
+    prep.restype = ctypes.c_int
+    lib.iggt_flash_bias_stride.argtypes = [i]
+    lib.iggt_flash_bias_stride.restype = ll
     lib.iggt_flash_fp32_scratch_floats.argtypes = [i, i, i, i, i]
     lib.iggt_flash_fp32_scratch_floats.restype = ll
     lib.iggt_cuda_error_string.argtypes = [ctypes.c_int]
@@ -162,6 +183,46 @@ def _check_tma(t: torch.Tensor, strides: Tuple[int, int, int]) -> None:
             f"({2 * sb}, {2 * sn}, {2 * sh})")
 
 
+def _check_qkv(tensors, names):
+    """Raise ValueError unless the (B, N, H, D) tensors are CUDA tensors of
+    one kernel dtype and device, with a contiguous last dim and D in HEAD_DIMS."""
+    first = tensors[0]
+    for name, t in zip(names, tensors):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.dim() != 4 or t.stride(-1) != 1:
+            raise ValueError(f"{name} must be (B, N, H, D) with a contiguous last dim")
+        if t.dtype != first.dtype or t.device != first.device:
+            raise ValueError(f"{', '.join(names)} must share dtype and device")
+    if first.dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported dtype {first.dtype}: the kernel takes bf16 and fp32")
+    if first.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"unsupported head dim {first.shape[-1]}: the kernel takes "
+                         f"{HEAD_DIMS}")
+
+
+def _prep_args(cos, sin, norm, B, N, D, device):
+    """The q/k prep's inputs as the kernels read them: fp32 rope tables (B, >= N,
+    D) with a contiguous last dim and shared strides, and their (batch, row)
+    strides; the four qk-norm params as contiguous fp32 (D,) tensors."""
+    rope_sb = rope_sn = 0
+    if cos is not None:
+        cos = cos.to(device=device, dtype=torch.float32)
+        sin = sin.to(device=device, dtype=torch.float32)
+        for t in (cos, sin):
+            if (t.dim() != 3 or t.shape[0] != B or t.shape[1] < N
+                    or t.shape[2] != D or t.stride(-1) != 1):
+                raise ValueError("rope tables must be (B, N, D) with a contiguous last dim")
+        if cos.stride() != sin.stride():
+            raise ValueError("rope cos and sin tables must share strides")
+        rope_sb, rope_sn = cos.stride(0), cos.stride(1)
+    if norm is not None:
+        norm = [t.to(device=device, dtype=torch.float32).contiguous() for t in norm]
+        if any(t.shape != (D,) for t in norm):
+            raise ValueError("qk-norm params must each be (D,)")
+    return cos, sin, rope_sb, rope_sn, norm
+
+
 # planted faults of the fp32 path, for the card check only (`_launch`'s fault)
 FP32_FAULTS = {"one TF32 pass": 1, "V^T without the key permutation": 2}
 
@@ -171,19 +232,9 @@ def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5, fau
     in bf16 with the q/k prep, the TF32 split in fp32) and launch the
     kernels.  ``fault`` (a key of `FP32_FAULTS`, fp32 only) plants a fault
     for the card check; no caller of the port passes it."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor")
-        if t.dim() != 4 or t.stride(-1) != 1:
-            raise ValueError(f"{name} must be (B, N, H, D) with a contiguous last dim")
-        if t.dtype != q.dtype or t.device != q.device:
-            raise ValueError("q, k and v must share dtype and device")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"unsupported dtype {q.dtype}: the kernel takes bf16 and fp32")
+    _check_qkv((q, k, v), ("q", "k", "v"))
     B, Nq, H, D = q.shape
     Nk = k.shape[1]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"unsupported head dim {D}: the kernel takes {HEAD_DIMS}")
     if k.shape != (B, Nk, H, D) or v.shape != (B, Nk, H, D):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -193,29 +244,20 @@ def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5, fau
         # TMA reads v, and q/k unless the prep kernel copies them to scratch
         for i in (2,) if prep else (0, 1, 2):
             _check_tma((q, k, v)[i], strides[i])
+    lib = _kernel()
     if key_bias is not None:
         if key_bias.shape != (B, Nk):
             raise ValueError(f"key_bias must be (B, Nk) = {(B, Nk)}")
-        key_bias = key_bias.to(device=q.device, dtype=torch.float32).contiguous()
-    rope_sb = rope_sn = 0
-    if cos is not None:
-        cos = cos.to(device=q.device, dtype=torch.float32)
-        sin = sin.to(device=q.device, dtype=torch.float32)
-        for t in (cos, sin):
-            if (t.dim() != 3 or t.shape[0] != B or t.shape[1] < max(Nq, Nk)
-                    or t.shape[2] != D or t.stride(-1) != 1):
-                raise ValueError("rope tables must be (B, N, D) with a contiguous last dim")
-        if cos.stride() != sin.stride():
-            raise ValueError("rope cos and sin tables must share strides")
-        rope_sb, rope_sn = cos.stride(0), cos.stride(1)
-    if norm is not None:
-        norm = [t.to(device=q.device, dtype=torch.float32).contiguous() for t in norm]
-        if any(t.shape != (D,) for t in norm):
-            raise ValueError("qk-norm params must each be (D,)")
+        # the kernels read it times log2(e), rows zero-padded to a whole key tile
+        padded = torch.zeros((B, lib.iggt_flash_bias_stride(Nk)), dtype=torch.float32,
+                             device=q.device)
+        padded[:, :Nk] = key_bias.to(device=q.device, dtype=torch.float32) * LOG2E
+        key_bias = padded
+    cos, sin, rope_sb, rope_sn, norm = _prep_args(cos, sin, norm, B, max(Nq, Nk), D,
+                                                  q.device)
     gq, bq, gk, bk = norm if norm is not None else (None,) * 4
     if fault is not None and q.dtype != torch.float32:
         raise ValueError("planted faults apply to the fp32 path only")
-    lib = _kernel()
     q_prep = k_prep = None
     if q.dtype == torch.float32:
         q_prep = torch.empty(lib.iggt_flash_fp32_scratch_floats(B, H, Nq, Nk, D),
@@ -294,6 +336,56 @@ def flash_attention_fused(
 
 
 flash_attention_fused.launches = 0
+
+
+def qk_prep(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    qk_norm_params: Optional[Sequence[torch.Tensor]] = None,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The q/k prep alone: (prepped q, prepped k), each contiguous (B, N, H, D)
+    in the input's dtype (fp32 LayerNorm, then RoPE, one rounding).
+
+    Arguments as `flash_attention_fused`'s.  CUDA tensors launch the prep
+    kernel (one launch preps both); CPU tensors take `qk_prep_plain`."""
+    gq, bq, gk, bk = qk_norm_params if qk_norm_params is not None else (None,) * 4
+    if q.device.type == "cpu":
+        return (qk_prep_plain(q, gq, bq, rope_cos, rope_sin, eps),
+                qk_prep_plain(k, gk, bk, rope_cos, rope_sin, eps))
+    _check_qkv((q, k), ("q", "k"))
+    B, Nq, H, D = q.shape
+    Nk = k.shape[1]
+    if k.shape != (B, Nk, H, D):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)}")
+    if rope_cos is None and qk_norm_params is None:
+        raise ValueError("qk_prep needs rope tables or qk-norm params")
+    cos, sin, rope_sb, rope_sn, norm = _prep_args(rope_cos, rope_sin, qk_norm_params,
+                                                  B, max(Nq, Nk), D, q.device)
+    gq, bq, gk, bk = norm if norm is not None else (None,) * 4
+    q_out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
+    k_out = torch.empty((B, Nk, H, D), dtype=q.dtype, device=q.device)
+    lib = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.iggt_flash_qk_prep(
+            _DTYPE_CODE[q.dtype], D, int(norm is not None), int(cos is not None),
+            q.data_ptr(), k.data_ptr(),
+            _ptr(cos), _ptr(sin), rope_sb, rope_sn,
+            _ptr(gq), _ptr(bq), _ptr(gk), _ptr(bk),
+            q_out.data_ptr(), k_out.data_ptr(),
+            B, H, Nq, Nk, *_strides(q), *_strides(k), eps, stream,
+        )
+    if err != 0:
+        raise RuntimeError("q/k prep kernel failed to launch: "
+                           + lib.iggt_cuda_error_string(err).decode())
+    qk_prep.launches += 1
+    return q_out, k_out
+
+
+qk_prep.launches = 0
 
 
 def attention(

@@ -16,8 +16,8 @@ Counterpart of `iggt_official_tpu/utils/checkpoint.py::load_torch_checkpoint`
    shape differs keeps the model's tensor and is reported, never raised.
    The report lists matched, shape-mismatched, missing (in the model, not in
    the checkpoint), unused (in the checkpoint, not in the model) and dropped
-   names.  ``track_head.*`` entries are unused until the track head is
-   ported.
+   names.  ``track_head.*`` entries are unused unless the model is built
+   with ``enable_track=True``; then a reference checkpoint loads whole.
 
 ``weights_only``: the file is read with ``torch.load(..., weights_only=True)``,
 so loading it cannot run code (the JAX loader reads with ``False``).  That

@@ -1,13 +1,14 @@
 """matplotlib's colormaps as the demo uses them, without matplotlib.
 
-The card machine has no matplotlib, so the port keeps the five 256-entry
+The card machine has no matplotlib, so the port keeps the six 256-entry
 lookup tables the JAX package reaches through it -- ``jet`` (mask colours,
-depth PNGs), ``viridis``, ``plasma``, ``turbo`` (depth PNGs) and
-``gist_rainbow`` (GLB camera markers) -- and matplotlib's float lookup:
+depth PNGs), ``viridis``, ``plasma``, ``turbo`` (depth PNGs),
+``gist_rainbow`` (GLB camera markers) and ``hsv`` (track colours) -- and
+matplotlib's float lookup:
 index floor(x * 256), 1.0 mapped to 255, values below 0 to the first entry,
 above 1 to the last, NaN to black.
 
-``jet`` and ``gist_rainbow`` are sampled from matplotlib's segment data as
+``jet``, ``gist_rainbow`` and ``hsv`` are sampled from matplotlib's segment data as
 `matplotlib.colors._create_lookup_table` samples it; ``viridis``, ``plasma``
 and ``turbo`` are listed colormaps, whose tables were written once from
 matplotlib into ``listed_colormaps.npy`` (float64, (3, 256, 3)) beside this
@@ -38,6 +39,19 @@ _GIST_RAINBOW_POINTS = (
     (0.400, (0.00, 1.00, 0.00)), (0.586, (0.00, 1.00, 1.00)), (0.770, (0.00, 0.00, 1.00)),
     (0.954, (1.00, 0.00, 1.00)), (1.000, (1.00, 0.00, 0.75)),
 )
+# matplotlib's `hsv` segment data (`_cm.py::_hsv_data`)
+_HSV_DATA = {
+    "red": ((0.0, 1.0, 1.0), (0.15873, 1.0, 1.0), (0.174603, 0.96875, 0.96875),
+            (0.333333, 0.03125, 0.03125), (0.349206, 0.0, 0.0), (0.666667, 0.0, 0.0),
+            (0.68254, 0.03125, 0.03125), (0.84127, 0.96875, 0.96875),
+            (0.857143, 1.0, 1.0), (1.0, 1.0, 1.0)),
+    "green": ((0.0, 0.0, 0.0), (0.15873, 0.9375, 0.9375), (0.174603, 1.0, 1.0),
+              (0.507937, 1.0, 1.0), (0.666667, 0.0625, 0.0625), (0.68254, 0.0, 0.0),
+              (1.0, 0.0, 0.0)),
+    "blue": ((0.0, 0.0, 0.0), (0.333333, 0.0, 0.0), (0.349206, 0.0625, 0.0625),
+             (0.507937, 1.0, 1.0), (0.84127, 1.0, 1.0), (0.857143, 0.9375, 0.9375),
+             (1.0, 0.09375, 0.09375)),
+}
 _LISTED = ("viridis", "plasma", "turbo")
 
 
@@ -66,6 +80,7 @@ def _segmented(data) -> np.ndarray:
 LUTS: Dict[str, np.ndarray] = {
     "jet": _segmented(_JET_DATA),
     "gist_rainbow": _segmented(_from_points(_GIST_RAINBOW_POINTS)),
+    "hsv": _segmented(_HSV_DATA),
     **dict(zip(_LISTED, np.load(Path(__file__).with_name("listed_colormaps.npy")))),
 }
 JET_LUT = LUTS["jet"]

@@ -7,7 +7,8 @@ paths), copied here, not imported:
 - flax path ``a/blocks_3/attn/qkv/kernel`` -> module path
   ``a.blocks.3.attn.qkv``, with the reference's module renames undone
   (`scratch.`, `resize_layers.<i>[.<j>]`, Projects and Swin internals,
-  `poseLN_modulation.1`);
+  `poseLN_modulation.1`, the tracker's Sequential heads
+  `ffeat_updater.0` / `vis_predictor.0` / `conf_predictor.0`);
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - Conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw);
 - ConvTranspose ``kernel`` (kh, kw, in, out), stored spatially flipped ->
@@ -61,8 +62,10 @@ _INVERSE_RULES = (
     (r"\.conv_block\.ca\.fc1$", ".conv_block.cab.3.attention.1"),
     (r"\.conv_block\.ca\.fc2$", ".conv_block.cab.3.attention.3"),
     (r"\.conv_before_upsample$", ".conv_before_upsample.0"),
-    (r"\.(blocks|frame_blocks|global_blocks|trunk|projects|output_conv2)_(\d+)(?=\.|$)",
-     r".\1.\2"),
+    (r"\.(ffeat_updater|vis_predictor|conf_predictor)$", r".\1.0"),
+    (r"\.(blocks|frame_blocks|global_blocks|trunk|projects|output_conv2|time_blocks"
+     r"|space_virtual_blocks|space_point2virtual_blocks|space_virtual2point_blocks)"
+     r"_(\d+)(?=\.|$)", r".\1.\2"),
 )
 
 

@@ -9,6 +9,8 @@
 - camera / register tokens normal(1e-6); DINOv2 pos_embed normal(0.02), its
   cls and register tokens 0; relative-position bias tables truncated
   normal(0.02) on [-2, 2]; empty pose tokens 0.
+- the tracker's packed attention in-projection xavier uniform (bias 0), its
+  virtual tracks and query reference token normal(1).
 
 Random numbers come from an explicit `torch.Generator` on the parameters'
 device, in module order, so a seed fixes the weights.  They are not the JAX
@@ -27,8 +29,9 @@ from iggt_official_tpu_torch.ops.conv import FrozenBatchNorm
 
 _TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
 
-_NORMAL_STD = {"camera_token": 1e-6, "register_token": 1e-6, "pos_embed": 0.02}
-_ZERO = {"cls_token", "register_tokens", "empty_pose_tokens"}
+_NORMAL_STD = {"camera_token": 1e-6, "register_token": 1e-6, "pos_embed": 0.02,
+               "virual_tracks": 1.0, "query_ref_token": 1.0}
+_ZERO = {"cls_token", "register_tokens", "empty_pose_tokens", "in_proj_bias"}
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -67,6 +70,8 @@ def init_params(model: nn.Module, gen: torch.Generator) -> None:
                 param.normal_(0.0, _NORMAL_STD[name], generator=gen)
             elif name in _ZERO:
                 param.zero_()
+            elif name == "in_proj_weight":
+                nn.init.xavier_uniform_(param, generator=gen)
             elif name == "relative_position_bias_table":
                 nn.init.trunc_normal_(param, std=0.02, a=-0.04, b=0.04, generator=gen)
             else:

@@ -9,6 +9,7 @@ counts and loaded tensors must be equal.
 """
 
 import argparse
+import dataclasses
 import json
 import os.path as op
 
@@ -61,6 +62,22 @@ def test_reference_layout_loads_in_every_form(form):
     assert len(report["matched"]) == 1639
     assert report["missing"] == [] and report["shape_mismatch"] == []
     assert logged == ["checkpoint: 1639 matched, 0 shape-mismatch, 0 missing, 394 unused, "
+                      "20 dropped"]
+
+
+def test_reference_layout_loads_whole_with_the_track_head():
+    """With ``enable_track=True`` the full-width model holds the track head
+    under the reference's names (its Sequential heads included): the
+    manifest loads as 2033 matched, 0 unused, 20 dropped, 0 missing."""
+    state = _manifest_state()
+    dead = {n for n in state if iggt_rename(n) is None}
+    model = build_model(dataclasses.replace(ModelConfig(), enable_track=True), device="meta")
+    logged = []
+    report = ckpt.load_reference_state(model, state, log=logged.append)
+    assert set(report["dropped"]) == dead
+    assert set(report["matched"]) == set(state) - dead == set(model.state_dict())
+    assert report["unused"] == [] and report["missing"] == [] and report["shape_mismatch"] == []
+    assert logged == ["checkpoint: 2033 matched, 0 shape-mismatch, 0 missing, 0 unused, "
                       "20 dropped"]
 
 

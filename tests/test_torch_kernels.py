@@ -178,6 +178,108 @@ def test_fused_kernel_at_the_global_length(cuda_device, dtype):
     assert fa.flash_attention_fused.launches == n + 1
 
 
+def _bf16_ulp(x: torch.Tensor, floor: float) -> torch.Tensor:
+    """The spacing of bf16 values (8 significant bits) at max(|x|, floor)."""
+    exp = torch.floor(torch.log2(x.abs().clamp_min(floor)))
+    return torch.exp2(exp - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("nq,nk", [(1, 1), (65, 65), (1374, 1374), (2607, 1601), (63, 129)])
+def test_qk_prep_kernel_alone_matches_plain(cuda_device, monkeypatch, dtype, D, nq, nk):
+    """The prep kernel launched alone (token merging's route) on strided
+    q/k views at ragged lengths, Nq != Nk both ways: contiguous outputs
+    within one bf16 ulp of `qk_prep_plain` (both prep in fp32 and round
+    once; the spacing counted at |x| >= 1/64, since their fp32 sums differ
+    by ~1e-6 and RoPE's two terms can cancel to a result that small), fp32
+    within 1e-5; one launch per call, and the plain version is never taken
+    on the card."""
+    tdt = getattr(torch, dtype)
+    q, _, _, _, norm = _qkv(cuda_device, tdt, B=2, N=nq, H=3, D=D, seed=12)
+    _, k, _, _, _ = _qkv(cuda_device, tdt, B=2, N=nk, H=3, D=D, seed=13)
+    pos = rope.make_patch_positions(1, max(nq, nk), 2, 0, device=cuda_device)
+    cos, sin = rope.pack_rope_tables(rope.compute_rope_2d(pos, D))
+    ref_q = fa.qk_prep_plain(q, norm[0], norm[1], cos, sin).float()
+    ref_k = fa.qk_prep_plain(k, norm[2], norm[3], cos, sin).float()
+    monkeypatch.setattr(fa, "qk_prep_plain", _raise)
+    n = fa.qk_prep.launches
+    out_q, out_k = fa.qk_prep(q, k, cos, sin, norm)
+    assert fa.qk_prep.launches == n + 1
+    for out, ref in ((out_q, ref_q), (out_k, ref_k)):
+        assert out.is_contiguous() and out.dtype == tdt and out.shape == ref.shape
+        err = (out.float() - ref).abs()
+        if dtype == "bfloat16":
+            ulp = _bf16_ulp(torch.maximum(out.float().abs(), ref.abs()), 2.0 ** -6)
+            assert bool((err <= ulp).all()), (err / ulp).max().item()
+        else:
+            assert err.max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 64])
+def test_key_biased_flash_kernel_at_merged_lengths(cuda_device, dtype, D):
+    """The merged global blocks' call: full-length q (prepped, contiguous)
+    against merged, contiguous k/v with Nk != Nq and both ragged, and an fp32
+    log-size key bias."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    for nq, nk in ((2607, 1601), (1000, 999), (129, 65)):
+        q, k, v = (torch.randn((1, n, 4, D), generator=gen, device=cuda_device).to(tdt)
+                   for n in (nq, nk, nk))
+        sizes = torch.randint(1, 6, (1, nk), generator=gen, device=cuda_device)
+        bias = torch.log(sizes.float())
+        n = fa.flash_attention.launches
+        _assert_close(fa.flash_attention(q, k, v, bias),
+                      fa.flash_attention_plain(q, k, v, bias))
+        assert fa.flash_attention.launches == n + 1
+
+
+def _raise(*args, **kwargs):
+    raise AssertionError("a plain version was taken on the card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+def test_merged_forwards_are_equal_bytes(cuda_device, monkeypatch, trunk):
+    """A scaled IGGT on the card, 3 views at 112x154 px, merged at r = 40:
+    two forwards give equal bytes in every output (the merge sums in a fixed
+    order), each launches the kernels of the merged route (per forward: one
+    fused call per frame block, one prep-only and one key-biased flash call
+    per global block, one flash call per DINOv2 block and for the part head)
+    and never a plain version."""
+    import dataclasses
+
+    from iggt_official_tpu_torch.config import ModelConfig
+    from iggt_official_tpu_torch.models.vggt import build_model
+
+    cfg = dataclasses.replace(
+        ModelConfig().scaled(embed_dim=128, depth=2, num_heads=2, vit_depth=1, img_size=112),
+        trunk_dtype=trunk)
+    model = build_model(cfg, cuda_device, seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    x = torch.rand((1, 3, 112, 154, 3), generator=gen, device=cuda_device)
+    for name in ("qk_prep_plain", "flash_attention_plain"):
+        monkeypatch.setattr(fa, name, _raise)
+    counts = []
+    outs = []
+    with torch.inference_mode():
+        for _ in range(2):
+            before = (fa.flash_attention_fused.launches, fa.qk_prep.launches,
+                      fa.flash_attention.launches)
+            outs.append(model(x, global_merge_r=40))
+            torch.cuda.synchronize()
+            counts.append((fa.flash_attention_fused.launches - before[0],
+                           fa.qk_prep.launches - before[1],
+                           fa.flash_attention.launches - before[2]))
+    assert counts[0] == counts[1] == (2, 2, 2 + 1 + 1)
+    for key, value in outs[0].items():
+        if isinstance(value, torch.Tensor):
+            assert torch.equal(value, outs[1][key]), key
+
+
 @pytest.mark.cuda
 def test_bf16_wrapper_raises_on_strides_tma_cannot_take(cuda_device):
     """A row / head stride of 136 bytes (D = 64 cut from 68) is no multiple of
