@@ -96,7 +96,28 @@ order; any failure exits non-zero:
    full-width IGGT with `enable_track=True` at 8x518 with 256 query points
    on a grid in view 0: shapes, finite values, vis and conf in [0, 1], view
    0's track equal to the queries, the forward's time and the track head's
-   share of it (CUDA events), peak memory.
+   share of it (CUDA events), peak memory.  The 3-view request also prints
+   the exact-forward fingerprint (SHA-256 of the bytes of depth,
+   world_points and part_feat; two forwards must give the same) and runs the
+   demo's --mask_sky on a 3-view scene with a sky band: sky_masks/ written
+   once and read back by the next request, no sky pixel's point in the rgb
+   GLB, its point count the confidence percentile's.
+7. sam2: the fp32 flash kernel at head dim 72 at each of Hiera-L's eight
+   attention shapes at 1024 px (windows of 16 to 4096 keys, pooled queries)
+   against its plain version (limit 1e-5, max|ref| beside it), with planted
+   faults (the scale of the padded head dim, V's last 8 columns dropped, the
+   last key tile dropped or one key past Nk admitted), its time against the
+   bound and SDPA's on the same fp32 tensors (SDPA's backend named; by CUDA
+   events and by replaying a CUDA graph of the calls); a
+   scaled SAM2 (embed 72, head dim 72) on the card against the CPU, same
+   weights (backbone_fpn, multimask logits, IoUs, object score for a point
+   and a box prompt; limit 1e-3 relative); then the full-width
+   `sam2_hiera_l("2.1")` image predictor (random weights from the seed) on a
+   seeded 1280x960 image: `set_image` (median of 3, 48 flash launches
+   counted and split by attention shape), `predict` with a point and a box, the automatic mask generator
+   with its defaults and with both thresholds at 0, peak memory, and
+   `set_image` with Hiera's attention on the plain version, whose
+   backbone_fpn must agree with the kernel's to 1e-3 relative.
 
 The kernels phase also holds token merging's two launches at the merged
 8x518 global block: the q/k prep kernel alone (1, 10992, 16, 64) against
@@ -112,6 +133,7 @@ JSON summary of the kernels, and the last line
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import json
@@ -185,6 +207,36 @@ def device_ms(fn, iters: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()) / iters / 1e3
+
+
+def graph_ms(fn, calls: int, reps: int = 5) -> float:
+    """Time per call with no host work between calls: ``calls`` calls of
+    ``fn`` captured in one CUDA graph, replayed ``reps`` times between CUDA
+    events; the median replay over ``calls``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return float(np.median(times))
 
 
 def voronoi_scene(views: int, h: int, w: int, seed: int = 1):
@@ -280,7 +332,8 @@ MAIN_CASE = {"flash_attention": "frame/DINOv2 block, 8 views 518px",
              "qk_prep": "merged global block q/k prep, bfloat16, 8 views 518px",
              "nn1": "backfill, 8 views 518x518",
              "fused_ln": "frame/global pre-norm, 8 views 518px",
-             "bucket_topk": "core kNN candidate, Q = R = 150000"}
+             "bucket_topk": "core kNN candidate, Q = R = 150000",
+             "flash_attention_hiera": "blocks 23, 33, 43, global"}
 REPLACES = {
     "flash_attention": "iggt_official_tpu/ops/flash_attention.py:117",
     "flash_attention_fused": "iggt_official_tpu/ops/flash_attention.py:335",
@@ -288,6 +341,7 @@ REPLACES = {
     "nn1": "iggt_official_tpu/ops/nn1_pallas.py:82",
     "fused_ln": "iggt_official_tpu/ops/fused_ln.py:39",
     "bucket_topk": "iggt_official_tpu/ops/nn1_pallas.py:190",
+    "flash_attention_hiera": "iggt_official_tpu/ops/flash_attention.py:117",
 }
 KEY_TILE = 64
 MERGE_R = 4096           # the merged 8x518 request's --merge_tokens (4,795 candidates)
@@ -639,7 +693,8 @@ SOURCE = {"flash_attention": "iggt_official_tpu_torch/csrc/flash_attention.cu",
           "qk_prep": "iggt_official_tpu_torch/csrc/flash_attention.cu",
           "nn1": "iggt_official_tpu_torch/csrc/nn1.cu",
           "fused_ln": "iggt_official_tpu_torch/csrc/fused_ln.cu",
-          "bucket_topk": "iggt_official_tpu_torch/csrc/nn1.cu"}
+          "bucket_topk": "iggt_official_tpu_torch/csrc/nn1.cu",
+          "flash_attention_hiera": "iggt_official_tpu_torch/csrc/flash_attention.cu"}
 
 
 def nn1_bound_ms(Q: int, R: int, D: int = 8):
@@ -1206,6 +1261,8 @@ CASE_KEYS = {
                     "library_ms", "library_queries", "library_kernel_ms", "rechecks_per_pair"),
 }
 CASE_KEYS["flash_attention_fused"] = CASE_KEYS["flash_attention"]
+CASE_KEYS["flash_attention_hiera"] = CASE_KEYS["flash_attention"] + (
+    "graph_ms", "library_graph_ms", "calls_per_set_image", "library_backend")
 CASE_KEYS["qk_prep"] = ("label", "shape", "dtype", "max_abs_err", "err", "err_unit", "limit",
                         "fault_errs", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 LAUNCHES_FROM = {
@@ -1218,13 +1275,16 @@ LAUNCHES_FROM = {
     "fused_ln": "the 8 views 518x518 request with RuntimeConfig(fused_ln=True)",
     "bucket_topk": "the bucket top-k path (core-kNN candidate) on the 10-view scene's "
                    "150,000-point subsample; no module calls it, as in the JAX package",
+    "flash_attention_hiera": "one SAM2ImagePredictor.set_image of sam2_hiera_l at 1024 px "
+                             "(the flash_attention wrapper's count: fp32, head dim 72, "
+                             "every Hiera attention)",
 }
 
 
 def kernels_summary(results, launches, extra):
     out = []
     for kernel in ("flash_attention", "flash_attention_fused", "qk_prep", "nn1", "fused_ln",
-                   "bucket_topk"):
+                   "bucket_topk", "flash_attention_hiera"):
         cases = [r for r in results if r["kernel"] == kernel]
         if not cases:
             continue
@@ -1249,6 +1309,8 @@ def kernels_summary(results, launches, extra):
                if k in main},
             "cases": [{k: r[k] for k in CASE_KEYS[kernel]} for r in cases],
         })
+        if kernel == "flash_attention_hiera":
+            out[-1]["wrapper"] = "flash_attention"
         if kernel in ("nn1", "bucket_topk"):
             out[-1]["max_abs_err_is"] = "index mismatches against the plain version"
         if kernel in LAUNCHES_FROM:
@@ -1599,12 +1661,14 @@ REQUESTS = (("3 views 504x336", 3, (504, 336)),
 
 
 def write_scene(root: str, n_views: int, seed: int, gt: bool = False,
-                size=(640, 480)) -> str:
+                size=(640, 480), sky: bool = False) -> str:
     """Synthetic seeded views (``size`` = (W, H)): smooth random colour fields
     plus noise; with ``gt`` also ground truth as the demo reads it, per view
     a 16-bit depth PNG in millimetres (a smooth surface at 1-5 m) under
     ``depth/`` and an npz with a camera-to-world ``pose`` (a random rotation
-    and translation) and pinhole ``intrinsics`` under ``cam/``."""
+    and translation) and pinhole ``intrinsics`` under ``cam/``; with ``sky``
+    the top 20% of every view is a smooth daylight-blue band without noise,
+    which `utils/sky.py::segment_sky_heuristic` takes for sky."""
     from PIL import Image
 
     W, H = size
@@ -1619,6 +1683,11 @@ def write_scene(root: str, n_views: int, seed: int, gt: bool = False,
         coarse = rng.uniform(0, 255, (6, 8, 3)).astype(np.uint8)
         img = np.asarray(Image.fromarray(coarse).resize((W, H), Image.BICUBIC), np.float32)
         img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+        if sky:
+            band = int(0.2 * H)
+            t = np.linspace(0.0, 1.0, band, dtype=np.float32)[:, None, None]
+            img[:band] = np.round(np.array([110, 160, 232], np.float32)
+                                  + t * np.array([40, 30, 10], np.float32)).astype(np.uint8)
         Image.fromarray(img).save(os.path.join(scene, "images", f"{i:04d}.png"))
         if not gt:
             continue
@@ -1910,6 +1979,8 @@ def run_requests(launches_out: dict, extra: dict) -> bool:
                 summary = results["evaluation"]["summary"]
                 log(f"[requests]   evaluation against the seeded ground truth (random "
                     f"weights): {json.dumps(summary)}")
+                ok &= forward_fingerprint(proc, x, label, extra)
+                ok &= run_mask_sky(proc, tmp, S, (W, H))
             if i == len(REQUESTS) - 1:
                 rb = extra["nn1_request_backfill"] = nn1_request_backfill(proc, scene)
                 ok &= rb["mismatches"] == 0
@@ -1988,6 +2059,110 @@ def run_requests(launches_out: dict, extra: dict) -> bool:
         ok &= run_long_sequence(proc.model)
         ok &= run_track_forward(proc, x)
     return ok
+
+
+FINGERPRINT_KEYS = ("depth", "world_points", "part_feat")
+
+
+def forward_fingerprint(proc, x, label: str, extra: dict) -> bool:
+    """SHA-256 of the bytes of the exact forward's depth, world_points and
+    part_feat (in that order), for two forwards of the same images: they must
+    be equal.  The digest goes into the log (and ``extra``), so that a later
+    run whose exact path reads other bytes on the same weights and images
+    shows at once."""
+    import hashlib
+
+    import torch
+
+    digests = []
+    with torch.inference_mode():
+        for _ in range(2):
+            out = proc.model(x)
+            whole, parts = hashlib.sha256(), {}
+            for k in FINGERPRINT_KEYS:
+                b = out[k].contiguous().cpu().numpy().tobytes()
+                whole.update(b)
+                parts[k] = hashlib.sha256(b).hexdigest()[:16]
+            digests.append((whole.hexdigest(), parts))
+            del out
+    ok = digests[0] == digests[1]
+    extra["fingerprint"] = digests[0][0]
+    log(f"[requests]   exact-forward fingerprint ({label}, seed {SEED}; sha256 of "
+        f"{' + '.join(FINGERPRINT_KEYS)}): {digests[0][0]} "
+        f"({', '.join(f'{k} {v}' for k, v in digests[0][1].items())}); second forward "
+        f"{'equal' if ok else 'DIFFERS: ' + digests[1][0]}")
+    return ok
+
+
+def glb_point_count(path: str) -> int:
+    """POSITION count of a GLB's first mesh (the point cloud)."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    length, kind = struct.unpack_from("<II", data, 12)
+    if kind != 0x4E4F534A:   # "JSON"
+        raise ValueError(f"{path}: no JSON chunk first")
+    doc = json.loads(data[20:20 + length])
+    return doc["accessors"][doc["meshes"][0]["primitives"][0]["attributes"]["POSITION"]]["count"]
+
+
+def run_mask_sky(proc, tmp: str, S: int, size) -> bool:
+    """The demo's --mask_sky on an S-view scene with a smooth blue band along
+    the top (`write_scene(sky=True)`): a request without the flag, one with
+    it (which writes sky_masks/), and a second one with it, which must read
+    the masks back and segment nothing.  The GLB's confidence filter keeps
+    the points at or above the conf_threshold percentile (the JAX package's
+    rule), a fixed share: so with the flag the rgb GLB must hold no sky
+    pixel's point and as many points as that rule leaves from the masked
+    confidence, while without it sky points are kept."""
+    from iggt_official_tpu_torch.config import RuntimeConfig
+    from iggt_official_tpu_torch.utils import sky
+
+    W, H = size
+    scene = write_scene(tmp, S, SEED + 20, sky=True)
+    runs, walls, problems = {}, {}, []
+    for flag in (False, True):
+        proc.runtime = RuntimeConfig(image_size=(W, H), mask_sky=flag)
+        out_dir = os.path.join(tmp, f"out_sky_{flag}")
+        got = {}
+        walls[flag] = wall_s(lambda: got.update(proc.process_scene(scene, out_dir)))
+        runs[flag] = (got["predictions"], out_dir)
+    mask_dir = os.path.join(scene, "sky_masks")
+    written = sorted(os.listdir(mask_dir)) if os.path.isdir(mask_dir) else []
+    if len(written) != S:
+        problems.append(f"sky_masks/ holds {written}")
+    calls = []
+    segment = sky.segment_sky_heuristic
+    sky.segment_sky_heuristic = lambda image: calls.append(1) or segment(image)
+    try:
+        again = wall_s(lambda: proc.process_scene(scene, os.path.join(tmp, "out_sky_again")))
+    finally:
+        sky.segment_sky_heuristic = segment
+    if calls:
+        problems.append(f"the second --mask_sky request segmented {len(calls)} views again")
+    keep = sky.load_or_compute_sky_masks(scene, (H, W))
+    share = 1.0 - float(keep.mean())
+    counts = {}
+    for flag, (preds, out_dir) in runs.items():
+        conf = preds["world_points_conf"] * (keep if flag else 1.0)
+        kept = conf >= np.percentile(conf, proc.runtime.conf_threshold * 100)
+        glb = glb_point_count(os.path.join(out_dir, "scene_rgb.glb"))
+        counts[flag] = (glb, int((kept & (keep == 0)).sum()))
+        if glb != int(kept.sum()):
+            problems.append(f"mask_sky={flag}: GLB holds {glb} points, the rule keeps "
+                            f"{int(kept.sum())}")
+    if counts[True][1] != 0 or counts[False][1] == 0 or not 0 < share < 0.3:
+        problems.append(f"sky points kept (without, with the flag) "
+                        f"{counts[False][1]}, {counts[True][1]}; sky share {share:.3f}")
+    log(f"[requests] --mask_sky, {S} views {W}x{H} with a sky band: sky share "
+        f"{share:.4f}; rgb GLB points without / with the flag {counts[False][0]} / "
+        f"{counts[True][0]} (a fixed percentile of confidence), of them sky pixels "
+        f"{counts[False][1]} / {counts[True][1]}; sky_masks/ written ({len(written)} files) "
+        f"and read back by the next request ({len(calls)} views segmented again); requests "
+        f"{walls[False]:.3f} / {walls[True]:.3f} / {again:.3f} s; "
+        f"{'ok' if not problems else problems}")
+    return not problems
 
 
 def merged_forward_want(cfg, S: int):
@@ -2213,6 +2388,335 @@ def run_track_forward(proc, x) -> bool:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 7: SAM2 (Hiera-L image path, the automatic mask generator) and the
+# demo's --mask_sky request
+
+HIERA_CASES = (
+    # (label, windows B', query tokens Nq, keys Nk, heads H, calls per
+    # set_image) of `sam2_hiera_l` at 1024 px, head dim 72 everywhere; the
+    # q-pool blocks attend 2x2-pooled queries over their window's keys
+    ("blocks 0-1, window 8", 1024, 64, 64, 2, 2),
+    ("block 2, q-pool, window 8", 1024, 16, 64, 4, 1),
+    ("blocks 3-7, window 4", 1024, 16, 16, 4, 5),
+    ("block 8, q-pool, window 4", 1024, 4, 16, 8, 1),
+    ("blocks 9-43 windowed, window 16", 16, 256, 256, 8, 32),
+    ("blocks 23, 33, 43, global", 1, 4096, 4096, 8, 3),
+    ("block 44, q-pool, window 16", 16, 64, 256, 16, 1),
+    ("blocks 45-47, window 8", 16, 64, 64, 16, 3),
+)
+HIERA_D = 72
+HIERA_ITERS = 50
+HIERA_MAIN_CASE = "blocks 23, 33, 43, global"
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The SDPA backend that PyTorch's dispatcher picks for (q, k, v)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+
+
+def check_hiera_kernels():
+    """The fp32 flash kernel at each of Hiera-L's attention shapes (D = 72):
+    q, k, v as the strided views of one packed qkv that `MultiScaleAttention`
+    hands over (the pooled q of a q-pool block a new contiguous tensor),
+    against `flash_attention_plain` within FP32_ABS, max|ref| beside the
+    limit.  Planted faults of the kernel (`flash_attention.HIERA_FAULTS`)
+    must each exceed the limit: the softmax scale of the panels' padded head
+    dim (1/sqrt(96)), V's last 8 head-dim columns dropped, the last key tile
+    dropped (where Nk > 64) or one key past Nk admitted.  Time per call
+    against the bound and SDPA on the same fp32 tensors (with the backend the
+    dispatcher picks), read twice: CUDA events over HIERA_ITERS back-to-back
+    wrapper calls (host work included where it sets the pace) and the
+    replay of HIERA_ITERS calls captured in one CUDA graph (no host work
+    between launches).  The calls per `set_image` are filled in by
+    `run_sam2`, which counts them."""
+    import torch
+    import torch.nn.functional as F
+
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    D = HIERA_D
+    results = []
+    for label, B, Nq, Nk, H, calls in HIERA_CASES:
+        qkv = torch.randn((B, Nk, 3, H, D), generator=gen, device=dev)
+        q, k, v = qkv.unbind(2)
+        if Nq != Nk:   # 2x2 max-pool of the window's queries, as the q-pool blocks do
+            side = int(round(Nk ** 0.5))
+            q = F.max_pool2d(q.reshape(B, side, side, H * D).permute(0, 3, 1, 2), 2)
+            q = q.permute(0, 2, 3, 1).reshape(B, Nq, H, D).contiguous()
+
+        def run_kernel():
+            return fa.flash_attention(q, k, v)
+
+        def run_plain():
+            return fa.flash_attention_plain(q, k, v)
+
+        qp, kp, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def run_library():
+            return F.scaled_dot_product_attention(qp, kp, vt)
+
+        faults = {name: (lambda bit=name: fa._launch(q, k, v, fault=bit))
+                  for name in fa.HIERA_FAULTS
+                  if name != ("last key tile dropped" if Nk <= KEY_TILE
+                              else "one key past Nk admitted")}
+        out = run_kernel()
+        torch.cuda.synchronize()
+        ref = run_plain()
+        ref_max = ref.abs().max().item()
+        err = (out - ref).abs().max().item()
+        finite = bool(torch.isfinite(out).all().item())
+        fault_errs = {name: (fn() - ref).abs().max().item() for name, fn in faults.items()}
+        caught = all(e > FP32_ABS for e in fault_errs.values())
+        ms = time_ms(run_kernel, iters=HIERA_ITERS)
+        plain_ms = time_ms(run_plain, iters=3, warmup=1)
+        library_ms = time_ms(run_library, iters=HIERA_ITERS)
+        kernel_graph_ms = graph_ms(run_kernel, HIERA_ITERS)
+        library_graph_ms = graph_ms(run_library, HIERA_ITERS)
+        backend = sdpa_backend(qp, kp, vt)
+        bound_ms, bound_by, fma_ms = attention_bound_ms(B, Nq, Nk, H, D, "float32")
+        ok = finite and err <= FP32_ABS and caught
+        log(f"[sam2] flash_attention D=72 {label:32s} q {(B, Nq, H, D)} k/v {(B, Nk, H, D)} "
+            f"x{calls} max_abs_err={err:.3e} (limit {FP32_ABS:.0e}, max|ref| {ref_max:.3e}) "
+            f"{'ok' if ok else 'FAIL'} | ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+            f"{100 * bound_ms / ms:.1f}% of the bound; fp32 FMA figure {fma_ms:.4f}) "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA fp32: {backend}) | "
+            f"CUDA graph of {HIERA_ITERS} calls, per call: kernel {kernel_graph_ms:.4f} ms, "
+            f"SDPA {library_graph_ms:.4f} ms")
+        log(f"[sam2]   planted faults: "
+            + ", ".join(f"{name} err {e:.3e} ({e / FP32_ABS:.1f}x limit)"
+                        for name, e in fault_errs.items())
+            + (" -- all caught" if caught else " -- NOT ALL CAUGHT"))
+        results.append(dict(
+            kernel="flash_attention_hiera", label=label, shape=[B, Nq, Nk, H, D],
+            dtype="float32", key_bias=False, calls_per_set_image=None, max_abs_err=err,
+            limit=FP32_ABS, max_abs_ref=ref_max, fault_errs=fault_errs, ok=ok, ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
+            graph_ms=kernel_graph_ms, library_graph_ms=library_graph_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms))
+        del qkv, q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return results
+
+
+SAM2_TOL = 1e-3          # card (kernels) vs CPU (plain versions), and kernel vs plain
+                         # attention inside the full-width encoder: fp32, summation
+                         # order only (TF32 off), relative to max|ref|
+SAM2_IMAGE = (960, 1280)  # (H, W) of the full-width request's image
+SAM2_SET_IMAGE_RUNS = 3
+SAM2_OBJ_BIAS = 8.0
+
+
+def sam2_image(seed: int = SEED, hw=SAM2_IMAGE) -> np.ndarray:
+    """A seeded RGB uint8 image: a smooth colour field with flat rectangles
+    and ellipses (objects for the mask generator), light noise."""
+    from PIL import Image
+
+    H, W = hw
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(40, 215, (4, 5, 3)).astype(np.uint8)
+    img = np.asarray(Image.fromarray(coarse).resize((W, H), Image.BICUBIC), np.float32)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for _ in range(6):
+        cy, cx = rng.uniform(0.15, 0.85) * H, rng.uniform(0.15, 0.85) * W
+        ry, rx = rng.uniform(0.06, 0.18) * H, rng.uniform(0.06, 0.18) * W
+        colour = rng.uniform(0, 255, 3)
+        if rng.random() < 0.5:
+            inside = (np.abs(yy - cy) < ry) & (np.abs(xx - cx) < rx)
+        else:
+            inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+        img[inside] = colour
+    return np.clip(img + rng.normal(0, 2, img.shape), 0, 255).astype(np.uint8)
+
+
+def sam2_heads(model, feats, prompt):
+    """Multimask logits, IoUs and object score of one prompt on features
+    ``feats`` (forward_image's dict), as the predictor runs them."""
+    from iggt_official_tpu_torch.sam2.base import high_res_features
+
+    out = model.forward_sam_heads(feats["backbone_fpn"][-1], prompt, None,
+                                  high_res_features(feats, model.cfg), True)
+    return out[0], out[2], out[6]
+
+
+def check_sam2_agreement() -> bool:
+    """`SAM2Config().scaled(embed_dim=72)` (head dim 72 at every stage, so the
+    card runs the D = 72 kernel) with the same seeded weights on the card and
+    on the CPU: backbone_fpn, and the decoder's multimask logits, IoUs and
+    object score for a point and for a box prompt, within SAM2_TOL."""
+    import torch
+
+    from iggt_official_tpu_torch.sam2.build import build_sam2
+    from iggt_official_tpu_torch.sam2.config import SAM2Config
+
+    cfg = SAM2Config().scaled(embed_dim=72)
+    cpu = build_sam2(cfg, device="cpu", seed=SEED)
+    card = build_sam2(cfg, device="cuda", seed=SEED)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (1, cfg.image_size, cfg.image_size, 3)).astype(np.float32))
+    prompts = {"point": {"point_coords": torch.tensor([[[40.0, 21.0]]]),
+                         "point_labels": torch.tensor([[1]], dtype=torch.int32)},
+               "box": {"point_coords": torch.tensor([[[8.0, 10.0], [50.0, 44.0]]]),
+                       "point_labels": torch.tensor([[2, 3]], dtype=torch.int32)}}
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+
+    errs = {}
+    with torch.inference_mode():
+        zero_counts()
+        feats = {d: m.forward_image(x.to(d)) for d, m in (("cpu", cpu), ("cuda", card))}
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches
+        for i, (ref, out) in enumerate(zip(feats["cpu"]["backbone_fpn"],
+                                           feats["cuda"]["backbone_fpn"])):
+            errs[f"backbone_fpn[{i}]"] = rel_err(ref, out)
+        for name, prompt in prompts.items():
+            ref = sam2_heads(cpu, feats["cpu"], prompt)
+            out = sam2_heads(card, feats["cuda"], {k: v.cuda() for k, v in prompt.items()})
+            for key, a, b in zip(("logits", "ious", "object score"), ref, out):
+                errs[f"{name} {key}"] = rel_err(a, b)
+    ok = all(e <= SAM2_TOL for e in errs.values()) and launches == sum(cfg.hiera.stages)
+    log(f"[sam2] scaled SAM2 (embed 72, head dim 72) card vs CPU, same weights: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (limit {SAM2_TOL:.0e} of max|ref|); flash launches {launches} "
+        f"(want {sum(cfg.hiera.stages)}) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_sam2(launches_out: dict, hiera_results=()) -> bool:
+    """The full-width SAM2 image path on the card: `build_sam2_image_predictor(
+    sam2_hiera_l("2.1"), device="cuda", seed=SEED)` on a seeded 1280 x 960
+    image: `set_image` (median of SAM2_SET_IMAGE_RUNS, 48 flash launches
+    counted on the first, and split by attention shape (B', Nq, Nk, H): each
+    of Hiera's calls reads the wrapper's count before and after, and the
+    split must be HIERA_CASES'; it goes into ``hiera_results``' calls per
+    `set_image`), `predict` with a point and with a box, the
+    automatic mask generator with its defaults and once with both
+    thresholds at 0 (so NMS, boxes and RLE run on every mask; random weights
+    score no object, so for this run the object-score head's output bias is
+    raised by SAM2_OBJ_BIAS and the masks are not the empty NO_OBJ_SCORE
+    ones), peak memory;
+    then `set_image` with Hiera's attention on `flash_attention_plain` on the
+    card, whose backbone_fpn must agree with the kernel's within SAM2_TOL."""
+    import torch
+
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+    from iggt_official_tpu_torch.sam2 import hiera
+    from iggt_official_tpu_torch.sam2.amg import SAM2AutomaticMaskGenerator, rle_to_mask
+    from iggt_official_tpu_torch.sam2.build import build_sam2_image_predictor
+    from iggt_official_tpu_torch.sam2.config import sam2_hiera_l
+
+    cfg = sam2_hiera_l("2.1")
+    t0 = time.time()
+    pred = build_sam2_image_predictor(cfg, device="cuda", seed=SEED)
+    n_params = sum(p.numel() for p in pred.model.parameters())
+    log(f"[sam2] full-width sam2_hiera_l(\"2.1\"): {n_params / 1e6:.1f} M parameters "
+        f"(fp32), built in {time.time() - t0:.1f} s; image {SAM2_IMAGE[1]}x{SAM2_IMAGE[0]}, "
+        f"model resolution {cfg.image_size}")
+    image = sam2_image()
+    problems = []
+    pred.set_image(image)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_shape = collections.Counter()
+
+    def counted_attention(q, k, v):
+        before = fa.flash_attention.launches
+        out = fa.attention(q, k, v)
+        per_shape[(q.shape[0], q.shape[1], k.shape[1], q.shape[2])] += (
+            fa.flash_attention.launches - before)
+        return out
+
+    hiera.attention = counted_attention
+    try:
+        zero_counts()
+        walls = [wall_s(lambda: pred.set_image(image))]
+        launches = read_counts()
+    finally:
+        hiera.attention = fa.attention
+    want_split = {(B, Nq, Nk, H): calls for _, B, Nq, Nk, H, calls in HIERA_CASES}
+    if dict(per_shape) != want_split:
+        problems.append(f"set_image launches by shape {dict(per_shape)}, want {want_split}")
+    for r in hiera_results:
+        B, Nq, Nk, H, _ = r["shape"]
+        r["calls_per_set_image"] = per_shape.get((B, Nq, Nk, H), 0)
+    walls += [wall_s(lambda: pred.set_image(image)) for _ in range(SAM2_SET_IMAGE_RUNS - 1)]
+    want = sum(c[-1] for c in HIERA_CASES)
+    if launches["flash_attention"] != want or launches["flash_attention_fused"]:
+        problems.append(f"set_image launches {launches}, want flash {want}")
+    launches_out["flash_attention_hiera"] = launches["flash_attention"]
+    feats = pred._features["backbone_fpn"]
+    shapes = [tuple(f.shape) for f in feats]
+    if not all(bool(torch.isfinite(f).all()) for f in feats):
+        problems.append("non-finite backbone features")
+
+    H, W = SAM2_IMAGE
+    point = (np.array([[0.5 * W, 0.5 * H]]), np.array([1]))
+    box = np.array([0.25 * W, 0.25 * H, 0.7 * W, 0.8 * H])
+    t = {}
+    res = {}
+    t["predict point"] = wall_s(lambda: res.__setitem__("point", pred.predict(*point)))
+    t["predict box"] = wall_s(lambda: res.__setitem__("box", pred.predict(box=box)))
+    for name, (masks, ious, low) in res.items():
+        if (masks.shape != (3, H, W) or masks.dtype != bool or ious.shape != (3,)
+                or not np.isfinite(ious).all() or not np.isfinite(low).all()):
+            problems.append(f"predict {name}: masks {masks.shape} {masks.dtype}, ious {ious}")
+    amg_counts = {}
+    obj_bias = pred.model.sam_mask_decoder.pred_obj_score_head.layers[-1].bias
+    for label, kw in (("defaults", {}),
+                      ("thresholds 0", dict(pred_iou_thresh=0.0, stability_score_thresh=0.0,
+                                            output_mode="uncompressed_rle"))):
+        amg = SAM2AutomaticMaskGenerator(pred, **kw)
+        out = []
+        if kw:
+            obj_bias += SAM2_OBJ_BIAS
+        try:
+            t[f"AMG {label}"] = wall_s(lambda: out.extend(amg.generate(image)))
+        finally:
+            if kw:
+                obj_bias -= SAM2_OBJ_BIAS
+        amg_counts[label] = f"{len(out)} ({sum(r['area'] > 0 for r in out)} non-empty)"
+        for r in out[:50]:
+            seg = r["segmentation"]
+            area = int(seg.sum()) if isinstance(seg, np.ndarray) else int(rle_to_mask(seg).sum())
+            if area != r["area"]:
+                problems.append(f"AMG {label}: area {r['area']} vs its mask's {area}")
+                break
+    if not any(r["area"] > 0 for r in out):
+        problems.append("the AMG with thresholds 0 kept no non-empty mask")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    kernel_fpn = [f.clone() for f in feats]
+    hiera.attention = lambda q, k, v: fa.flash_attention_plain(q, k, v)
+    try:
+        plain_s = wall_s(lambda: pred.set_image(image))
+        errs = [rel_err(a, b) for a, b in zip(pred._features["backbone_fpn"], kernel_fpn)]
+    finally:
+        hiera.attention = fa.attention
+    if max(errs) > SAM2_TOL:
+        problems.append(f"kernel vs plain attention backbone_fpn {errs}")
+    ok = not problems
+    log(f"[sam2] set_image {float(np.median(walls)):.4f} s (median of {len(walls)}: "
+        + ", ".join(f"{w:.4f}" for w in walls) + f"); flash launches per set_image "
+        f"{launches['flash_attention']} (want {want}; by (B', Nq, Nk, H): "
+        + ", ".join(f"{k} x{v}" for k, v in sorted(per_shape.items()))
+        + f"); backbone_fpn {shapes}; "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in t.items())
+        + f"; AMG masks: defaults {amg_counts['defaults']}, thresholds 0 "
+        f"{amg_counts['thresholds 0']}; peak {peak:.2f} GiB allocated")
+    log(f"[sam2] set_image with Hiera's attention on flash_attention_plain: {plain_s:.4f} s; "
+        f"backbone_fpn kernel vs plain " + ", ".join(f"{e:.2e}" for e in errs)
+        + f" (limit {SAM2_TOL:.0e} of max|ref|); {'ok' if ok else problems}")
+    del pred
+    torch.cuda.empty_cache()
+    return ok
+
+
 def build_all() -> None:
     """nvcc for every kernel source and g++ for the native host library, all
     started together; prints each build's time and the ptxas report."""
@@ -2238,7 +2742,8 @@ def build_all() -> None:
                 log(f"[build] {src}: {line.strip()}")
 
 
-def main(phases=("device", "build", "kernels", "agreement", "postproc", "requests")) -> int:
+def main(phases=("device", "build", "kernels", "agreement", "postproc", "requests",
+                 "sam2")) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2275,6 +2780,12 @@ def main(phases=("device", "build", "kernels", "agreement", "postproc", "request
         ok &= run_postproc(launches)
     if "requests" in phases:
         ok &= run_requests(launches, extra)
+    if "sam2" in phases:
+        hiera = check_hiera_kernels()
+        results += hiera
+        ok &= all(r["ok"] for r in hiera)
+        ok &= check_sam2_agreement()
+        ok &= run_sam2(launches, hiera)
 
     summary = kernels_summary(results, launches, extra) if results else []
     log(json.dumps({"kernels": summary}))

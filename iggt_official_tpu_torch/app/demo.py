@@ -18,13 +18,17 @@ and poses are evaluated against it into ``evaluation_report.json``.  Writes
 ``predictions.npz``, ``masks/mask_%04d.png``, ``pca/pca_%04d.png``, the
 depth visualizations under ``depth_vis/`` (four colormaps per view, a scale
 bar, a colormap comparison, a GIF, the depth maps and their statistics as
-npy) and ``scene_{rgb,mask,pca}.glb``.  Sky masking is not ported.
+npy) and ``scene_{rgb,mask,pca}.glb``.  With ``RuntimeConfig(mask_sky=True)``
+(``--mask_sky``) the GLB export multiplies the world-point confidence by
+per-view sky keep-masks (`utils/sky.py`), read from
+``<target_dir>/sky_masks/`` or computed and written there.
 
 Usage:
     python -m iggt_official_tpu_torch.app.demo --target_dir <scene> \
         --save_dir out [--model_path weights.pt] [--preset large] \
         [--exact_clustering] [--image_size 504 336] [--conf_threshold 0.3] \
-        [--merge_tokens R] [--head_dtype float32|bfloat16] [--device cuda]
+        [--merge_tokens R] [--mask_sky] [--head_dtype float32|bfloat16] \
+        [--device cuda]
 
 Weights are random (from a seed) unless ``--model_path`` names a checkpoint
 in the reference layout: the published IGGT checkpoint (bare, wrapped in
@@ -71,6 +75,7 @@ from iggt_official_tpu_torch.utils.colormaps import get_cmap
 from iggt_official_tpu_torch.utils.device import resolve_device
 from iggt_official_tpu_torch.utils.glb import predictions_to_glb
 from iggt_official_tpu_torch.utils.images import load_and_preprocess_images
+from iggt_official_tpu_torch.utils.sky import load_or_compute_sky_masks
 
 logger = logging.getLogger(__name__)
 
@@ -183,7 +188,7 @@ class IGGTProcessor:
         t0 = trace_stage(trace, "npz + mask / PCA PNGs", t0)
         self._save_depth_visualizations(preds["depth"][..., 0], save_dir)
         t0 = trace_stage(trace, "depth_vis", t0)
-        self._export_glbs(preds, save_dir)
+        self._export_glbs(preds, save_dir, target_dir)
         trace_stage(trace, "GLB export", t0)
         return results
 
@@ -375,10 +380,16 @@ class IGGTProcessor:
         draw.text((w - 8 * len(label), h + bar_h + 1), label, fill=(255,) * 3)
         img.save(save_path)
 
-    def _export_glbs(self, preds: Dict[str, np.ndarray], save_dir: str) -> None:
+    def _export_glbs(self, preds: Dict[str, np.ndarray], save_dir: str,
+                     target_dir: Optional[str] = None) -> None:
         """rgb | mask | pca point clouds with camera markers as GLB
         (`demo.py:618-657` of the reference), points below the
-        ``conf_threshold`` percentile of confidence dropped."""
+        ``conf_threshold`` percentile of confidence dropped; with
+        ``mask_sky``, sky pixels' confidence is zeroed first, so the
+        percentile filter drops them (`visual_util.py:112-159`)."""
+        conf = preds.get("world_points_conf")
+        if self.runtime.mask_sky and target_dir is not None and conf is not None:
+            conf = conf * load_or_compute_sky_masks(target_dir, conf.shape[-2:])
         modes = {"rgb": preds["images"]}
         if "instance_masks_colored" in preds:
             modes["mask"] = preds["instance_masks_colored"].astype(np.float32) / 255
@@ -386,7 +397,7 @@ class IGGTProcessor:
             modes["pca"] = preds["part_feat_pca"]
         for name, colors in modes.items():
             predictions_to_glb(
-                preds["world_points"], colors, conf=preds.get("world_points_conf"),
+                preds["world_points"], colors, conf=conf,
                 extrinsics=preds.get("extrinsic"),
                 conf_threshold=self.runtime.conf_threshold,
                 path=os.path.join(save_dir, f"scene_{name}.glb"))
@@ -409,6 +420,9 @@ def main() -> None:
     parser.add_argument("--merge_tokens", type=int, default=0,
                         help="merge this many K/V tokens out of every global "
                              "attention block (FastVGGT-style); 0 = exact")
+    parser.add_argument("--mask_sky", action="store_true",
+                        help="drop sky pixels from the GLB point clouds (per-view "
+                             "masks cached under <target_dir>/sky_masks)")
     parser.add_argument("--head_dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="decode-head compute dtype: float32 is the "
@@ -421,7 +435,7 @@ def main() -> None:
         conf_threshold=args.conf_threshold,
         clustering=dataclasses.replace(CLUSTERING_PRESETS[args.preset],
                                        exact=args.exact_clustering),
-        global_merge_r=args.merge_tokens)
+        global_merge_r=args.merge_tokens, mask_sky=args.mask_sky)
     model_cfg = dataclasses.replace(ModelConfig(), head_dtype=args.head_dtype)
     processor = IGGTProcessor(args.model_path, model_cfg=model_cfg, runtime=runtime,
                               device=args.device)

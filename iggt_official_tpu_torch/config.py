@@ -3,8 +3,8 @@
 The model dataclasses keep the JAX package's field names and defaults for
 everything the port builds, so `ModelConfig().scaled(...)` describes the
 same network in both packages.  Fields that select code not ported yet (the
-upstream-HAT window partition, the TPU mesh and sky masking) are left out
-until that code lands.
+upstream-HAT window partition and the TPU mesh) are left out until that code
+lands.
 """
 
 from __future__ import annotations
@@ -257,3 +257,7 @@ class RuntimeConfig:
     # Clamped to the unprotected candidates.  Worth it at 32+ views, where
     # the tokens of many views repeat each other.
     global_merge_r: int = 0
+    # GLB export: zero the world-point confidence of sky pixels through
+    # per-view sky keep-masks (`utils/sky.py`, cached under
+    # <target_dir>/sky_masks; the demo's --mask_sky), off as in the JAX package
+    mask_sky: bool = False

@@ -70,7 +70,11 @@
 //     split in registers.  Details and the key permutation above the kernels.
 //     Bound: three TF32 passes, 3 x 4 B H Nq Nk D flops at 495 TF/s (0.093 ms
 //     for the part head at 8 x 518 px, against 0.229 ms for one fp32 FMA pass
-//     at 67 TF/s).
+//     at 67 TF/s).  The same route runs SAM2's Hiera at D = 72 (not fused):
+//     rows of 72 floats, the third 32-column panel zero-filled by TMA, one
+//     K/V stage (TfLayout); Hiera-L's windows of 16-256 keys are bound by
+//     bytes or operations at 0.006-0.056 ms, its global blocks by operations
+//     (0.234 ms at (1, 4096, 8, 72)).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -570,10 +574,16 @@ constexpr int PREP_THREADS = 256;
 
 // A tile in shared memory is cut into panels of 32 columns (128-byte rows,
 // the 128-byte swizzle of TMA and of the wgmma descriptors): q and k tiles
-// into D / 32 panels of rows, V^T tiles into BK / 32 panels of D rows.
+// into ceil(D / 32) panels of rows, V^T tiles into BK / 32 panels of D rows.
+// At D = 72 (SAM2's Hiera) a 288-byte row is no whole number of swizzle
+// spans: the scratch keeps rows of 72 floats, and the third panel's TMA box
+// (columns 64..95) is zero-filled past column 72, so S = Q.K^T runs its 9
+// k8 steps on panels 0..2 and never reads the padding; V^T panels hold 72
+// rows (9 groups of 8) for the m64n72k8 P.V.  Its 180 KB leave room for one
+// K/V stage only.
 template <int D>
 struct TfLayout {
-  static constexpr int PANELS = D / 32;
+  static constexpr int PANELS = (D + 31) / 32;
   static constexpr int Q_PANEL = tf::BQ * tf::PANEL_ROW;
   static constexpr int K_PANEL = tf::BK * tf::PANEL_ROW;
   static constexpr int V_PANELS = tf::BK / 32;
@@ -581,7 +591,7 @@ struct TfLayout {
   static constexpr int Q_BYTES = 2 * PANELS * Q_PANEL;          // hi panels, then lo
   static constexpr int K_BYTES = 2 * PANELS * K_PANEL;
   static constexpr int STAGE_BYTES = K_BYTES + 2 * V_PANELS * V_PANEL;
-  static constexpr int STAGES = D == 64 ? 2 : 4;                // 64 KB / 32 KB stages
+  static constexpr int STAGES = D == 32 ? 4 : D == 64 ? 2 : 1;  // 32 / 64 / 84 KB stages
   static constexpr size_t q = 0;                                // every panel 1024-byte aligned
   static constexpr size_t kv = Q_BYTES;
   static constexpr size_t bars = kv + (size_t)STAGES * STAGE_BYTES;
@@ -593,13 +603,17 @@ __host__ __device__ inline long long padded_keys(int Nk) {
 }
 
 // blockIdx.y: 0 preps and splits q rows, 1 k rows (a warp per PREP_ROWS rows
-// (b, n, h), as the bf16 prep), 2 transposes and splits a 64-key tile of one
-// (b, h) of V through shared memory, keys permuted unless `permute` is 0
-// (a planted fault of the card check).
+// (b, n, h), as the bf16 prep; lane l owns columns e * 32 + l below D), 2
+// transposes and splits a 64-key tile of one (b, h) of V through shared
+// memory, keys permuted.  fault (planted faults of the card check, 0 on
+// every call of the port): bit 1 leaves the keys unpermuted, bit 2 drops
+// V's last 8 head-dim columns.  D = 72 rows take no q/k prep (nothing runs
+// SAM2's attention fused).
 template <int D>
 __global__ void __launch_bounds__(tf::PREP_THREADS)
-    flash_kernel_tf32_prep(const Args a, float* __restrict__ scratch, int permute) {
-  constexpr int E = D / 32;
+    flash_kernel_tf32_prep(const Args a, float* __restrict__ scratch, int fault) {
+  constexpr int E = (D + 31) / 32;
+  constexpr bool WHOLE = D % 32 == 0;            // every lane owns E columns
   const int BH = a.B * a.H;
   const long long nk_pad = padded_keys(a.Nk);
   float* qs = scratch;
@@ -627,13 +641,18 @@ __global__ void __launch_bounds__(tf::PREP_THREADS)
         bs[r] = (int)(row / ((long long)a.H * N));
         const float* src = base + bs[r] * sb + ns[r] * sn + hs[r] * sh;
 #pragma unroll
-        for (int e = 0; e < E; ++e) x[r][e] = src[e * 32 + lane];
+        for (int e = 0; e < E; ++e) {
+          const int j = e * 32 + lane;
+          x[r][e] = (WHOLE || j < D) ? src[j] : 0.f;
+        }
       }
     }
+    if constexpr (WHOLE) {
 #pragma unroll
-    for (int r = 0; r < PREP_ROWS; ++r) {
-      if (row0 + r < rows) {
-        prep_row<D>(x[r], a, bs[r], ns[r], is_k ? a.gk : a.gq, is_k ? a.bk : a.bq);
+      for (int r = 0; r < PREP_ROWS; ++r) {
+        if (row0 + r < rows) {
+          prep_row<D>(x[r], a, bs[r], ns[r], is_k ? a.gk : a.gq, is_k ? a.bk : a.bq);
+        }
       }
     }
     float* out = is_k ? ks : qs;
@@ -644,7 +663,10 @@ __global__ void __launch_bounds__(tf::PREP_THREADS)
       float* hi = out + ((bh * 2) * N + ns[r]) * D;
       float* lo = hi + (long long)N * D;
 #pragma unroll
-      for (int e = 0; e < E; ++e) split_tf32(x[r][e], hi[e * 32 + lane], lo[e * 32 + lane]);
+      for (int e = 0; e < E; ++e) {
+        const int j = e * 32 + lane;
+        if (WHOLE || j < D) split_tf32(x[r][e], hi[j], lo[j]);
+      }
     }
   } else {
     __shared__ float tile[tf::BK][D + 1];
@@ -655,14 +677,15 @@ __global__ void __launch_bounds__(tf::PREP_THREADS)
     const int k0 = (int)(tix % tiles) * tf::BK;
     const int b = bh / a.H, h = bh % a.H;
     const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+    const int d_end = (fault & 4) ? D - 8 : D;
     for (int i = threadIdx.x; i < tf::BK * D; i += tf::PREP_THREADS) {
       const int r = i / D, d = i % D, key = k0 + r;
-      tile[r][d] = key < a.Nk ? vp[key * a.v_sn + d] : 0.f;
+      tile[r][d] = key < a.Nk && d < d_end ? vp[key * a.v_sn + d] : 0.f;
     }
     __syncthreads();
     for (int i = threadIdx.x; i < tf::BK * D; i += tf::PREP_THREADS) {
       const int d = i / tf::BK, p = i % tf::BK, kk = p & 7;
-      const int r = permute ? (p & ~7) | (kk < 4 ? 2 * kk : 2 * kk - 7) : p;
+      const int r = (fault & 2) ? p : (p & ~7) | (kk < 4 ? 2 * kk : 2 * kk - 7);
       float* hi = vs + ((long long)bh * 2 * D + d) * nk_pad + k0 + p;
       split_tf32(tile[r][d], hi[0], hi[(long long)D * nk_pad]);
     }
@@ -682,7 +705,9 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 template <int D>
 __device__ __forceinline__ void wgmma_tf32_pv(float (&d)[D / 2], const uint32_t (&a)[4],
                                               uint64_t db, int acc) {
-  if constexpr (D == 64) {
+  if constexpr (D == 72) {
+    wgmma_tf32_rs_n72(d, a, db, acc);
+  } else if constexpr (D == 64) {
     wgmma_tf32_rs_n64(d, a, db, acc);
   } else {
     wgmma_tf32_rs_n32(d, a, db, acc);
@@ -939,9 +964,12 @@ cudaError_t launch_tf32(const CUtensorMap& tq, const CUtensorMap& tk, const CUte
 }
 
 // fp32: the prep kernel splits q / k (after the q/k prep when fused) and V^T
-// into the scratch, which the TF32 wgmma kernel then attends over.  fault:
-// bit 0 one TF32 pass, bit 1 V^T without the key permutation (planted
-// faults of the card check; 0 on every call of the port).
+// into the scratch, which the TF32 wgmma kernel then attends over.  fault
+// (planted faults of the card check; 0 on every call of the port): bit 0
+// one TF32 pass, bit 1 V^T without the key permutation, bit 2 V's last 8
+// head-dim columns dropped, bit 3 the softmax scale of the panels' padded
+// head dim (ceil(D / 32) * 32), bit 4 the last key tile dropped, bit 5 one
+// key past Nk admitted.
 template <int D>
 cudaError_t run_fp32(const Args& a, float* scratch, int fault, cudaStream_t stream) {
   const long long BH = (long long)a.B * a.H;
@@ -952,7 +980,7 @@ cudaError_t run_fp32(const Args& a, float* scratch, int fault, cudaStream_t stre
   if (vtiles > blocks) blocks = vtiles;
   if (blocks > 0x7fffffffLL || 2 * BH > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_kernel_tf32_prep<D><<<dim3((unsigned)blocks, 3), tf::PREP_THREADS, 0, stream>>>(
-      a, scratch, (fault & 2) ? 0 : 1);
+      a, scratch, fault);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float* qs = scratch;
@@ -964,13 +992,17 @@ cudaError_t run_fp32(const Args& a, float* scratch, int fault, cudaStream_t stre
       !make_split_map(&tv, vs, (int)padded_keys(a.Nk), D, (int)(2 * BH), D)) {
     return cudaErrorInvalidValue;
   }
+  Args m = a;                                    // what the attention kernel is told
+  if (fault & 8) m.scale = 1.f / sqrtf((float)(TfLayout<D>::PANELS * 32));
+  if (fault & 16) m.Nk = (a.Nk - 1) / tf::BK * tf::BK;
+  if (fault & 32) m.Nk = a.Nk + 1;
   const bool bias = a.key_bias != nullptr;
   if (fault & 1) {
-    return bias ? launch_tf32<D, true, 1>(tq, tk, tv, a, stream)
-                : launch_tf32<D, false, 1>(tq, tk, tv, a, stream);
+    return bias ? launch_tf32<D, true, 1>(tq, tk, tv, m, stream)
+                : launch_tf32<D, false, 1>(tq, tk, tv, m, stream);
   }
-  return bias ? launch_tf32<D, true, 3>(tq, tk, tv, a, stream)
-              : launch_tf32<D, false, 3>(tq, tk, tv, a, stream);
+  return bias ? launch_tf32<D, true, 3>(tq, tk, tv, m, stream)
+              : launch_tf32<D, false, 3>(tq, tk, tv, m, stream);
 }
 
 // The q/k prep of every q and k row into contiguous (B, Nq, H, D) / (B, Nk, H, D)
@@ -1022,8 +1054,9 @@ long long iggt_flash_fp32_scratch_floats(int B, int H, int Nq, int Nk, int head_
 // use_rope preps q and k into q_prep / k_prep (contiguous (B, Nq, H, D) and
 // (B, Nk, H, D) scratch) first; fp32 always splits q, k and V^T into q_prep
 // (iggt_flash_fp32_scratch_floats floats, 16-byte aligned; k_prep unused).
-// fault (fp32 only, 0 on every call of the port): bit 0 one TF32 pass, bit 1
-// V^T without the key permutation.  Returns a cudaError_t (0 on success).
+// head_dim: 32 or 64; 72 (SAM2's Hiera) in fp32 without use_norm / use_rope.
+// fault (fp32 only, 0 on every call of the port): the planted faults of
+// run_fp32.  Returns a cudaError_t (0 on success).
 int iggt_flash_attention(
     int dtype, int head_dim, int use_norm, int use_rope,
     const void* q, const void* k, const void* v, void* o,
@@ -1041,7 +1074,7 @@ int iggt_flash_attention(
   if (use_rope && !(rope_cos && rope_sin)) return (int)cudaErrorInvalidValue;
   const bool fused = use_norm || use_rope;
   if (dtype == 1 && (fault || (fused && !(q_prep && k_prep)))) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && (!q_prep || (reinterpret_cast<uintptr_t>(q_prep) & 15) || (fault & ~3))) {
+  if (dtype == 0 && (!q_prep || (reinterpret_cast<uintptr_t>(q_prep) & 15) || (fault & ~63))) {
     return (int)cudaErrorInvalidValue;
   }
   Args a;
@@ -1057,11 +1090,14 @@ int iggt_flash_attention(
   a.scale = scale; a.eps = eps;
   const bool has_bias = key_bias != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != 32 && head_dim != 64) return (int)cudaErrorInvalidValue;
+  if (head_dim == 72 && (dtype != 0 || fused)) return (int)cudaErrorInvalidValue;
+  if (head_dim != 32 && head_dim != 64 && head_dim != 72) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
     float* split = static_cast<float*>(q_prep);
-    err = head_dim == 32 ? run_fp32<32>(a, split, fault, s) : run_fp32<64>(a, split, fault, s);
+    err = head_dim == 32   ? run_fp32<32>(a, split, fault, s)
+          : head_dim == 64 ? run_fp32<64>(a, split, fault, s)
+                           : run_fp32<72>(a, split, fault, s);
   } else if (dtype == 1) {
     err = head_dim == 32 ? run_bf16<32>(a, fused, has_bias, q_prep, k_prep, s)
                          : run_bf16<64>(a, fused, has_bias, q_prep, k_prep, s);

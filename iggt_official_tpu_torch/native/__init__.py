@@ -2,8 +2,9 @@
 
 `postproc.cpp` is a copy of the JAX package's `native/postproc.cpp`
 (KD-tree kNN, reusable kNN tree, 1-NN, Boruvka MST over kNN graphs, the
-weighted-HDBSCAN labelling).  It is compiled with g++ at first use into
-`iggt_official_tpu_torch/build/`, keyed by a hash of the source AND of the
+weighted-HDBSCAN labelling, and the 8-connectivity connected components of
+SAM2's post-processing and the sky masks).  It is compiled with g++ at first
+use into `iggt_official_tpu_torch/build/`, keyed by a hash of the source AND of the
 host CPU: the build uses ``-march=native``, so a library built on one
 machine must never be loaded on another whose CPU lacks its instructions.
 
@@ -106,11 +107,27 @@ def load() -> ctypes.CDLL:
     lib.knn_tree_free.restype = None
     lib.knn_tree_query.argtypes = [ctypes.c_void_p, f32, i64, i64, f32, pi64]
     lib.knn_tree_query.restype = None
+    lib.ccl2d.argtypes = [ctypes.POINTER(ctypes.c_uint8), i64, i64, i64,
+                          ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+    lib.ccl2d.restype = None
     return lib
 
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def connected_components(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Batched 8-connectivity components of (B, H, W) bool / uint8 masks:
+    (labels int32, areas int32), label = the component's smallest linear
+    pixel index + 1, background 0 and area 0."""
+    mask = np.ascontiguousarray(mask, np.uint8)
+    b, h, w = mask.shape
+    labels = np.empty((b, h, w), np.int32)
+    areas = np.empty((b, h, w), np.int32)
+    load().ccl2d(_ptr(mask, ctypes.c_uint8), b, h, w,
+                 _ptr(labels, ctypes.c_int32), _ptr(areas, ctypes.c_int32))
+    return labels, areas
 
 
 def hdbscan_mst_labels(edge_a, edge_b, edge_d, weights, core, eps: float,

@@ -5,8 +5,10 @@ kernels of that module map onto `csrc/flash_attention.cu`:
 
 - `flash_attention`: non-causal softmax(Q K^T D^-1/2 + key_bias) V, online
   softmax in fp32, for (B, N, H, D) tensors with D in {32, 64} and dtype in
-  {bf16, fp32}.  bf16 runs a wgmma kernel fed by TMA, which reads q/k/v in
-  place through tensor maps (`_check_tma`).  fp32 runs three TF32 passes on
+  {bf16, fp32}, and D = 72 in fp32 (SAM2's Hiera: every head is 72 wide,
+  in windows of 16 to 4096 keys, with pooled queries Nq = Nk / 4).  bf16
+  runs a wgmma kernel fed by TMA, which reads q/k/v in place through tensor
+  maps (`_check_tma`).  fp32 runs three TF32 passes on
   wgmma (hi.hi + hi.lo + lo.hi, which hold 1e-5 where one pass cannot): a
   prep kernel first splits q, k and V^T into hi / lo scratch that the
   wrapper allocates (`iggt_flash_fp32_scratch_floats`), then a wgmma kernel
@@ -48,6 +50,7 @@ import torch
 from iggt_official_tpu_torch.ops import cuda_build
 
 HEAD_DIMS = (32, 64)
+FP32_HEAD_DIMS = HEAD_DIMS + (72,)   # flash_attention in fp32 only, no q/k prep
 LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -183,9 +186,10 @@ def _check_tma(t: torch.Tensor, strides: Tuple[int, int, int]) -> None:
             f"({2 * sb}, {2 * sn}, {2 * sh})")
 
 
-def _check_qkv(tensors, names):
+def _check_qkv(tensors, names, fp32_dims=HEAD_DIMS):
     """Raise ValueError unless the (B, N, H, D) tensors are CUDA tensors of
-    one kernel dtype and device, with a contiguous last dim and D in HEAD_DIMS."""
+    one kernel dtype and device, with a contiguous last dim and D in HEAD_DIMS
+    (in ``fp32_dims`` for fp32)."""
     first = tensors[0]
     for name, t in zip(names, tensors):
         if not t.is_cuda:
@@ -196,9 +200,10 @@ def _check_qkv(tensors, names):
             raise ValueError(f"{', '.join(names)} must share dtype and device")
     if first.dtype not in _DTYPE_CODE:
         raise ValueError(f"unsupported dtype {first.dtype}: the kernel takes bf16 and fp32")
-    if first.shape[-1] not in HEAD_DIMS:
+    dims = fp32_dims if first.dtype == torch.float32 else HEAD_DIMS
+    if first.shape[-1] not in dims:
         raise ValueError(f"unsupported head dim {first.shape[-1]}: the kernel takes "
-                         f"{HEAD_DIMS}")
+                         f"{dims} in {first.dtype}")
 
 
 def _prep_args(cos, sin, norm, B, N, D, device):
@@ -225,20 +230,26 @@ def _prep_args(cos, sin, norm, B, N, D, device):
 
 # planted faults of the fp32 path, for the card check only (`_launch`'s fault)
 FP32_FAULTS = {"one TF32 pass": 1, "V^T without the key permutation": 2}
+# and of its Hiera shapes (D = 72: the panels pad the head dim to 96; windows
+# of 16 keys, under one 64-key tile)
+HIERA_FAULTS = {"scale 1/sqrt(96) of the padded head dim": 8,
+                "V without its last 8 head-dim columns": 4,
+                "last key tile dropped": 16, "one key past Nk admitted": 32}
+_FAULT_BITS = {**FP32_FAULTS, **HIERA_FAULTS}
 
 
 def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5, fault=None):
     """Check the inputs, allocate the output and the scratch (the prepped q/k
     in bf16 with the q/k prep, the TF32 split in fp32) and launch the
-    kernels.  ``fault`` (a key of `FP32_FAULTS`, fp32 only) plants a fault
-    for the card check; no caller of the port passes it."""
-    _check_qkv((q, k, v), ("q", "k", "v"))
+    kernels.  ``fault`` (a key of `FP32_FAULTS` or `HIERA_FAULTS`, fp32 only)
+    plants a fault for the card check; no caller of the port passes it."""
+    prep = cos is not None or norm is not None
+    _check_qkv((q, k, v), ("q", "k", "v"), HEAD_DIMS if prep else FP32_HEAD_DIMS)
     B, Nq, H, D = q.shape
     Nk = k.shape[1]
     if k.shape != (B, Nk, H, D) or v.shape != (B, Nk, H, D):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    prep = cos is not None or norm is not None
     strides = [_strides(t) for t in (q, k, v)]
     if q.dtype == torch.bfloat16:
         # TMA reads v, and q/k unless the prep kernel copies them to scratch
@@ -278,7 +289,7 @@ def _launch(q, k, v, key_bias=None, cos=None, sin=None, norm=None, eps=1e-5, fau
             _ptr(q_prep), _ptr(k_prep),
             B, H, Nq, Nk,
             *strides[0], *strides[1], *strides[2],
-            1.0 / math.sqrt(D), eps, FP32_FAULTS[fault] if fault else 0, stream,
+            1.0 / math.sqrt(D), eps, _FAULT_BITS[fault] if fault else 0, stream,
         )
     if err != 0:
         raise RuntimeError("flash attention kernel failed to launch: "

@@ -1,4 +1,4 @@
-"""Load a reference-layout IGGT checkpoint into the port's model.
+"""Load a reference-layout IGGT or SAM2 checkpoint into the port's model.
 
 Counterpart of `iggt_official_tpu/utils/checkpoint.py::load_torch_checkpoint`
 (which mirrors the reference demo's loader), in four steps:
@@ -26,6 +26,12 @@ containers; the one such entry a training checkpoint of the reference's
 lineage carries is the training script's ``argparse.Namespace`` (``args``),
 which is allowed here.  Anything else is refused with torch's error; a class
 that a real checkpoint turns out to carry joins the allowed list.
+
+A released SAM2 checkpoint (``sam2.1_hiera_large.pt`` and its siblings, the
+weights under ``"model"``) loads through the same steps
+(`load_reference_state`): none of its names matches a dead-entry rule, so
+step 3 drops nothing, and the port's SAM2 keeps the reference's names
+(pinned by ``tests/data/sam2_l_state_dict_manifest.json``).
 """
 
 from __future__ import annotations

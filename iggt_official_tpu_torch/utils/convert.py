@@ -16,6 +16,10 @@ paths), copied here, not imported:
 - norm ``scale`` -> ``weight``; BatchNorm ``mean`` / ``var`` ->
   ``running_mean`` / ``running_var`` (+ ``num_batches_tracked`` = 0);
 - everything else (bias, gamma, tokens, pos_embed, bias tables) copies.
+
+`jax_sam2_params_to_torch_state_dict` does the same for the JAX package's
+SAM2 (the inverse of its `sam2_state_dict_to_flax`), into the layout of a
+released SAM2 checkpoint.
 """
 
 from __future__ import annotations
@@ -112,4 +116,79 @@ def jax_params_to_torch_state_dict(params: Mapping[str, Any]) -> Dict[str, torch
             out[f"{module}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
         name = f"{module}.{leaf}" if module else leaf
         out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SAM2: the inverse of `iggt_official_tpu/utils/torch_convert.py::sam2_state_dict_to_flax`
+# (its `_SAM2_RENAME_RULES`, the ConvTranspose paths and the layout specials), copied
+
+# reference module path -> flax module path rules of the JAX package, undone:
+# applied in order to the dot-joined flax module path after each `name_<i>`
+# segment became `name.<i>`
+_SAM2_INVERSE_RULES = (
+    (r"^image_encoder\.neck_convs\.(\d+)$", r"image_encoder.neck.convs.\1.conv"),
+    (r"\.trunk\.patch_embed_proj$", ".trunk.patch_embed.proj"),
+    (r"^memory_encoder\.fuser_layers\.(\d+)", r"memory_encoder.fuser.layers.\1"),
+    (r"^conv_s([01])$", r"sam_mask_decoder.conv_s\1"),
+    (r"\.mask_conv1$", ".mask_downscaling.0"),
+    (r"\.mask_ln1$", ".mask_downscaling.1"),
+    (r"\.mask_conv2$", ".mask_downscaling.3"),
+    (r"\.mask_ln2$", ".mask_downscaling.4"),
+    (r"\.mask_conv3$", ".mask_downscaling.6"),
+)
+_SAM2_CONVTRANSPOSE = r"output_upscaling\.[03]$"
+_SAM2_TOKENS = ("iou_token", "mask_tokens", "obj_score_token")
+
+
+def sam2_flax_module_to_torch(path) -> str:
+    module = ".".join(re.sub(r"^(.*)_(\d+)$", r"\1.\2", p) for p in path)
+    for pattern, repl in _SAM2_INVERSE_RULES:
+        module = re.sub(pattern, repl, module)
+    return module
+
+
+def jax_sam2_params_to_torch_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's SAM2 params (`SAM2Base.init_all`'s tree, optionally
+    under "params") -> the port's state dict, names and layouts of a released
+    SAM2 checkpoint: the rename rules undone; HWC position embeddings ->
+    (1, C, H, W); the stacked ``point_embeddings`` -> 4 x (1, C);
+    ``no_mask_embed`` / ``not_a_point_embed`` -> (1, C); ``maskmem_tpos_enc``
+    (M, 1, D) -> (M, 1, 1, D); the token tables as Embedding ``.weight``; the
+    ``output_upscaling.{0,3}`` ConvTranspose kernels un-flipped; Dense and
+    Conv kernels and norm scales as `jax_params_to_torch_state_dict` maps them."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name, arr):
+        out[name] = torch.from_numpy(np.array(arr, np.float32))
+
+    for path, value in _flatten(params):
+        arr = np.asarray(value)
+        leaf = path[-1]
+        if path[:2] == ("image_encoder", "trunk") and leaf in ("pos_embed", "pos_embed_window"):
+            put(f"image_encoder.trunk.{leaf}", arr.transpose(2, 0, 1)[None])
+        elif path == ("maskmem_tpos_enc",):
+            put(leaf, arr[:, :, None])
+        elif path[0] == "sam_prompt_encoder" and leaf in ("no_mask_embed", "not_a_point_embed"):
+            put(f"sam_prompt_encoder.{leaf}.weight", arr[None])
+        elif path[0] == "sam_prompt_encoder" and leaf == "point_embeddings":
+            for i, row in enumerate(arr):
+                put(f"sam_prompt_encoder.point_embeddings.{i}.weight", row[None])
+        elif path[0] == "sam_mask_decoder" and leaf in _SAM2_TOKENS:
+            put(f"sam_mask_decoder.{leaf}.weight", arr)
+        else:
+            module = sam2_flax_module_to_torch(path[:-1])
+            if leaf == "kernel":
+                if arr.ndim == 2:
+                    arr = arr.T
+                elif re.search(_SAM2_CONVTRANSPOSE, module):
+                    arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+                else:
+                    arr = arr.transpose(3, 2, 0, 1)
+                leaf = "weight"
+            elif leaf == "scale":
+                leaf = "weight"
+            put(f"{module}.{leaf}" if module else leaf, arr)
     return out

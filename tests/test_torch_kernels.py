@@ -572,3 +572,39 @@ def test_bucket_minima_kernel_more_buckets_than_references(cuda_device):
     assert torch.equal(bi, want_i) and torch.equal(bd, want_d)
     assert torch.isinf(bd[:, 1_000:]).all()
     assert torch.equal(bi[:, 1_000:].cpu(), torch.arange(1_000, 4_096).expand(300, -1))
+
+
+# Hiera's shapes at head dim 72 (fp32 only): (windows, Nq, Nk) with pooled
+# queries (Nq = Nk / 4) and windows smaller than one 64-key tile, plus ragged
+# lengths around the 64-key and 128-query tiles
+HIERA_RAGGED = [(64, 4, 16), (64, 16, 16), (32, 16, 64), (8, 64, 64), (4, 64, 256),
+                (2, 256, 256), (1, 1024, 4096), (3, 1, 1), (2, 65, 129), (2, 129, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows,nq,nk", HIERA_RAGGED)
+def test_fp32_flash_kernel_head_dim_72(cuda_device, windows, nq, nk):
+    """D = 72 at Hiera's window and q-pool shapes: q a new contiguous tensor
+    (the pooled queries), k and v strided views of one packed qkv, with and
+    without a key bias.  The scale is 72^-1/2 and keys past Nk stay masked
+    inside the one key tile of a 16-key window."""
+    q = _qkv(cuda_device, torch.float32, B=windows, N=nq, H=2, D=72, seed=12)[0].contiguous()
+    _, k, v, bias, _ = _qkv(cuda_device, torch.float32, B=windows, N=nk, H=2, D=72, seed=13)
+    assert not k.is_contiguous()
+    _assert_close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v))
+    _assert_close(fa.flash_attention(q, k, v, bias), fa.flash_attention_plain(q, k, v, bias))
+
+
+@pytest.mark.cuda
+def test_head_dim_72_is_fp32_flash_only(cuda_device):
+    """D = 72 takes the fp32 flash kernel: strided views give the bits of
+    contiguous copies, and bf16, the fused route and the q/k prep refuse it."""
+    q, k, v, _, norm = _qkv(cuda_device, torch.float32, B=3, N=200, H=2, D=72, seed=14)
+    out = fa.flash_attention(q, k, v)
+    assert torch.equal(out, fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous()))
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fused(q, k, v, qk_norm_params=norm)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.qk_prep(q, k, qk_norm_params=norm)
