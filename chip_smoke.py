@@ -117,7 +117,29 @@ order; any failure exits non-zero:
    counted and split by attention shape), `predict` with a point and a box, the automatic mask generator
    with its defaults and with both thresholds at 0, peak memory, and
    `set_image` with Hiera's attention on the plain version, whose
-   backbone_fpn must agree with the kernel's to 1e-3 relative.
+   backbone_fpn must agree with the kernel's to 1e-3 relative.  The same
+   kernel at head dims 56 (Hiera-B+) and 96 (Hiera-T and -S) at each of
+   their attention shapes at 1024 px (`hiera_cases`), the same checks and
+   times (faults: the padded scale at D = 56, V's last 8 columns, the last
+   key tile or one key past Nk); then `set_image` of the full-width T, S and
+   B+ image predictors: 12 / 16 / 24 flash launches split by shape, and
+   backbone_fpn against plain attention within 1e-3 relative.
+8. sam2_video: a scaled SAM2 video predictor (embed 72) card vs CPU (masks
+   of both propagation loops within 1e-3 relative), then the slice's
+   full-width path: `sam2_hiera_l("2.1")` at 1024 px over 25 seeded
+   1024x1024 frames (`sam2.benchmark.load_frames`), two objects clicked on
+   frame 0, `propagate_in_video` and `propagate_in_video_batch` in turns
+   (batch masks within rtol 1e-4 / atol 2e-4 of streaming's, 48 flash
+   launches per encoded frame, frames/s of each, the per-frame split by
+   CUDA events, peak memory), 4 frames with plain attention within 1e-3
+   relative, and `python -m iggt_official_tpu_torch.sam2.benchmark --preset
+   l --image_size 1024 --size 1024` in its own process.
+9. batch_eval (inside the requests phase, on its processor; alone on a
+   processor of its own): `app/batch_eval.run_scenes` over a 3-view scene
+   with ground truth and an 8-view scene at 504x336: predictions byte-equal
+   to serial `process_scene` runs, launch counts equal to their sum,
+   summary.json, and the gate passing against the serial outputs as
+   goldens and failing against a golden depth scaled by 1.02.
 
 The kernels phase also holds token merging's two launches at the merged
 8x518 global block: the q/k prep kernel alone (1, 10992, 16, 64) against
@@ -333,7 +355,9 @@ MAIN_CASE = {"flash_attention": "frame/DINOv2 block, 8 views 518px",
              "nn1": "backfill, 8 views 518x518",
              "fused_ln": "frame/global pre-norm, 8 views 518px",
              "bucket_topk": "core kNN candidate, Q = R = 150000",
-             "flash_attention_hiera": "blocks 23, 33, 43, global"}
+             "flash_attention_hiera": "blocks 23, 33, 43, global",
+             "flash_attention_hiera_d56": "global",
+             "flash_attention_hiera_d96": "global"}
 REPLACES = {
     "flash_attention": "iggt_official_tpu/ops/flash_attention.py:117",
     "flash_attention_fused": "iggt_official_tpu/ops/flash_attention.py:335",
@@ -342,6 +366,8 @@ REPLACES = {
     "fused_ln": "iggt_official_tpu/ops/fused_ln.py:39",
     "bucket_topk": "iggt_official_tpu/ops/nn1_pallas.py:190",
     "flash_attention_hiera": "iggt_official_tpu/ops/flash_attention.py:117",
+    "flash_attention_hiera_d56": "iggt_official_tpu/ops/flash_attention.py:117",
+    "flash_attention_hiera_d96": "iggt_official_tpu/ops/flash_attention.py:117",
 }
 KEY_TILE = 64
 MERGE_R = 4096           # the merged 8x518 request's --merge_tokens (4,795 candidates)
@@ -694,7 +720,9 @@ SOURCE = {"flash_attention": "iggt_official_tpu_torch/csrc/flash_attention.cu",
           "nn1": "iggt_official_tpu_torch/csrc/nn1.cu",
           "fused_ln": "iggt_official_tpu_torch/csrc/fused_ln.cu",
           "bucket_topk": "iggt_official_tpu_torch/csrc/nn1.cu",
-          "flash_attention_hiera": "iggt_official_tpu_torch/csrc/flash_attention.cu"}
+          "flash_attention_hiera": "iggt_official_tpu_torch/csrc/flash_attention.cu",
+          "flash_attention_hiera_d56": "iggt_official_tpu_torch/csrc/flash_attention.cu",
+          "flash_attention_hiera_d96": "iggt_official_tpu_torch/csrc/flash_attention.cu"}
 
 
 def nn1_bound_ms(Q: int, R: int, D: int = 8):
@@ -1263,6 +1291,8 @@ CASE_KEYS = {
 CASE_KEYS["flash_attention_fused"] = CASE_KEYS["flash_attention"]
 CASE_KEYS["flash_attention_hiera"] = CASE_KEYS["flash_attention"] + (
     "graph_ms", "library_graph_ms", "calls_per_set_image", "library_backend")
+CASE_KEYS["flash_attention_hiera_d56"] = CASE_KEYS["flash_attention_hiera"]
+CASE_KEYS["flash_attention_hiera_d96"] = CASE_KEYS["flash_attention_hiera"]
 CASE_KEYS["qk_prep"] = ("label", "shape", "dtype", "max_abs_err", "err", "err_unit", "limit",
                         "fault_errs", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 LAUNCHES_FROM = {
@@ -1278,13 +1308,18 @@ LAUNCHES_FROM = {
     "flash_attention_hiera": "one SAM2ImagePredictor.set_image of sam2_hiera_l at 1024 px "
                              "(the flash_attention wrapper's count: fp32, head dim 72, "
                              "every Hiera attention)",
+    "flash_attention_hiera_d56": "one SAM2ImagePredictor.set_image of sam2_hiera_b_plus at "
+                                 "1024 px (fp32, head dim 56)",
+    "flash_attention_hiera_d96": "one SAM2ImagePredictor.set_image each of sam2_hiera_t and "
+                                 "sam2_hiera_s at 1024 px (fp32, head dim 96)",
 }
 
 
 def kernels_summary(results, launches, extra):
     out = []
     for kernel in ("flash_attention", "flash_attention_fused", "qk_prep", "nn1", "fused_ln",
-                   "bucket_topk", "flash_attention_hiera"):
+                   "bucket_topk", "flash_attention_hiera", "flash_attention_hiera_d56",
+                   "flash_attention_hiera_d96"):
         cases = [r for r in results if r["kernel"] == kernel]
         if not cases:
             continue
@@ -1309,8 +1344,10 @@ def kernels_summary(results, launches, extra):
                if k in main},
             "cases": [{k: r[k] for k in CASE_KEYS[kernel]} for r in cases],
         })
-        if kernel == "flash_attention_hiera":
+        if kernel.startswith("flash_attention_hiera"):
             out[-1]["wrapper"] = "flash_attention"
+        if kernel == "flash_attention_hiera" and "flash_attention_hiera_video" in launches:
+            out[-1]["launches_sam2_video"] = launches["flash_attention_hiera_video"]
         if kernel in ("nn1", "bucket_topk"):
             out[-1]["max_abs_err_is"] = "index mismatches against the plain version"
         if kernel in LAUNCHES_FROM:
@@ -1908,13 +1945,14 @@ def timed_request(proc, scene, out_dir):
     return results, counts, peak, float(np.median(walls))
 
 
-def run_requests(launches_out: dict, extra: dict) -> bool:
+def run_requests(launches_out: dict, extra: dict, phases=("batch_eval",)) -> bool:
     """The three requests through `IGGTProcessor.process_scene` (the 3-view
     scene with seeded ground truth), then the two fast modes at 8 views
     518x518 on the same weights and images: `RuntimeConfig(fused_ln=True)` and
     `head_dtype="bfloat16"`, with the bare forwards of all three timed in
     turns.  The last request's backfill inputs go through the nn1 kernel once
-    more for its rechecks per query (``extra["nn1_request_backfill"]``)."""
+    more for its rechecks per query (``extra["nn1_request_backfill"]``).  With
+    "batch_eval" in ``phases``, `run_batch_eval` runs on this processor."""
     import torch
 
     from iggt_official_tpu_torch.app.demo import IGGTProcessor
@@ -2055,6 +2093,8 @@ def run_requests(launches_out: dict, extra: dict) -> bool:
                         med['head_dtype="bfloat16"'])
         del bf16, p
         torch.cuda.empty_cache()
+        if "batch_eval" in phases:
+            ok &= run_batch_eval(proc, tmp, launches_out)
         ok &= run_merged_request(proc, scene, x, tmp, base_preds, launches_out)
         ok &= run_long_sequence(proc.model)
         ok &= run_track_forward(proc, x)
@@ -2408,6 +2448,59 @@ HIERA_CASES = (
 HIERA_D = 72
 HIERA_ITERS = 50
 HIERA_MAIN_CASE = "blocks 23, 33, 43, global"
+# the other presets' head dims: Hiera-B+ 112 / 2 = 56, Hiera-T and -S 96 / 1
+HIERA_PRESETS = {"t": "sam2_hiera_t", "s": "sam2_hiera_s", "b+": "sam2_hiera_b_plus"}
+HIERA_PRESET_KERNEL = {56: "flash_attention_hiera_d56", 96: "flash_attention_hiera_d96"}
+
+
+def hiera_cases(cfg, image_size: int = 1024):
+    """Hiera's attention calls in one `set_image` at ``image_size`` px, by
+    shape: {(B', Nq, Nk, H, D): [label, calls]}, as `sam2.hiera.Hiera` builds
+    its blocks (the q-pool block at a stage boundary keeps the previous
+    stage's window, pools 2x2 queries, and has the new stage's width and
+    heads; windows pad the grid to a whole number of windows)."""
+    h = cfg.hiera
+    stage_ends = [sum(h.stages[: i + 1]) - 1 for i in range(len(h.stages))]
+    q_pool_blocks = [e + 1 for e in stage_ends[:-1]][: h.q_pool]
+    grid = image_size // 4
+    dim, heads, stage = h.embed_dim, h.num_heads, 1
+    out = {}
+    for i in range(sum(h.stages)):
+        window = 0 if h.global_att_blocks and i in h.global_att_blocks else h.window_spec[stage - 1]
+        if i - 1 in stage_ends:
+            dim, heads, stage = int(dim * h.dim_mul), int(heads * h.head_mul), stage + 1
+        pool = i in q_pool_blocks
+        if window:
+            B, Nk = (-(-grid // window)) ** 2, window * window
+            Nq = (window // 2) ** 2 if pool else Nk
+        else:
+            B, Nk = 1, grid * grid
+            Nq = (grid // 2) ** 2 if pool else Nk
+        key = (B, Nq, Nk, heads, dim // heads)
+        what = ("global" if not window else f"window {window}") + (", q-pool" if pool else "")
+        entry = out.setdefault(key, [what, 0])
+        entry[1] += 1
+        if pool:
+            grid //= 2
+    return out
+
+
+def hiera_preset_cases():
+    """{D: cases} for the presets other than L at 1024 px, cases in
+    `check_hiera_kernels`' form with the calls per `set_image` of each
+    preset ({preset: calls}): D = 96 (T and S share their eight shapes),
+    D = 56 (B+)."""
+    from iggt_official_tpu_torch.sam2 import config as sam2_config
+
+    by_d = {}
+    for preset, factory in HIERA_PRESETS.items():
+        for (B, Nq, Nk, H, D), (label, calls) in hiera_cases(
+                getattr(sam2_config, factory)("2.1")).items():
+            entry = by_d.setdefault(D, {}).setdefault((B, Nq, Nk, H), [label, {}])
+            entry[1][preset] = calls
+    return {D: tuple((label, B, Nq, Nk, H, calls)
+                     for (B, Nq, Nk, H), (label, calls) in shapes.items())
+            for D, shapes in sorted(by_d.items())}
 
 
 def sdpa_backend(q, k, v) -> str:
@@ -2418,15 +2511,18 @@ def sdpa_backend(q, k, v) -> str:
     return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
 
 
-def check_hiera_kernels():
-    """The fp32 flash kernel at each of Hiera-L's attention shapes (D = 72):
+def check_hiera_kernels(D: int = HIERA_D, cases=HIERA_CASES,
+                        kernel: str = "flash_attention_hiera"):
+    """The fp32 flash kernel at each of Hiera's attention shapes at head dim
+    ``D`` (72: Hiera-L's, `HIERA_CASES`; 56 and 96: `hiera_preset_cases`):
     q, k, v as the strided views of one packed qkv that `MultiScaleAttention`
     hands over (the pooled q of a q-pool block a new contiguous tensor),
     against `flash_attention_plain` within FP32_ABS, max|ref| beside the
     limit.  Planted faults of the kernel (`flash_attention.HIERA_FAULTS`)
     must each exceed the limit: the softmax scale of the panels' padded head
-    dim (1/sqrt(96)), V's last 8 head-dim columns dropped, the last key tile
-    dropped (where Nk > 64) or one key past Nk admitted.  Time per call
+    dim (1/sqrt(64) at D = 56, 1/sqrt(96) at D = 72; D = 96 pads nothing),
+    V's last 8 head-dim columns dropped, the last key tile dropped (where
+    Nk > 64) or one key past Nk admitted.  Time per call
     against the bound and SDPA on the same fp32 tensors (with the backend the
     dispatcher picks), read twice: CUDA events over HIERA_ITERS back-to-back
     wrapper calls (host work included where it sets the pace) and the
@@ -2439,10 +2535,9 @@ def check_hiera_kernels():
     from iggt_official_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
-    D = HIERA_D
+    gen = torch.Generator(device=dev).manual_seed(SEED + D)
     results = []
-    for label, B, Nq, Nk, H, calls in HIERA_CASES:
+    for label, B, Nq, Nk, H, calls in cases:
         qkv = torch.randn((B, Nk, 3, H, D), generator=gen, device=dev)
         q, k, v = qkv.unbind(2)
         if Nq != Nk:   # 2x2 max-pool of the window's queries, as the q-pool blocks do
@@ -2461,10 +2556,11 @@ def check_hiera_kernels():
         def run_library():
             return F.scaled_dot_product_attention(qp, kp, vt)
 
+        skip = {"last key tile dropped" if Nk <= KEY_TILE else "one key past Nk admitted"}
+        if D % 32 == 0:
+            skip.add("softmax scale of the padded head dim")
         faults = {name: (lambda bit=name: fa._launch(q, k, v, fault=bit))
-                  for name in fa.HIERA_FAULTS
-                  if name != ("last key tile dropped" if Nk <= KEY_TILE
-                              else "one key past Nk admitted")}
+                  for name in fa.HIERA_FAULTS if name not in skip}
         out = run_kernel()
         torch.cuda.synchronize()
         ref = run_plain()
@@ -2481,7 +2577,7 @@ def check_hiera_kernels():
         backend = sdpa_backend(qp, kp, vt)
         bound_ms, bound_by, fma_ms = attention_bound_ms(B, Nq, Nk, H, D, "float32")
         ok = finite and err <= FP32_ABS and caught
-        log(f"[sam2] flash_attention D=72 {label:32s} q {(B, Nq, H, D)} k/v {(B, Nk, H, D)} "
+        log(f"[sam2] flash_attention D={D} {label:32s} q {(B, Nq, H, D)} k/v {(B, Nk, H, D)} "
             f"x{calls} max_abs_err={err:.3e} (limit {FP32_ABS:.0e}, max|ref| {ref_max:.3e}) "
             f"{'ok' if ok else 'FAIL'} | ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
             f"{100 * bound_ms / ms:.1f}% of the bound; fp32 FMA figure {fma_ms:.4f}) "
@@ -2493,8 +2589,8 @@ def check_hiera_kernels():
                         for name, e in fault_errs.items())
             + (" -- all caught" if caught else " -- NOT ALL CAUGHT"))
         results.append(dict(
-            kernel="flash_attention_hiera", label=label, shape=[B, Nq, Nk, H, D],
-            dtype="float32", key_bias=False, calls_per_set_image=None, max_abs_err=err,
+            kernel=kernel, label=label, shape=[B, Nq, Nk, H, D],
+            dtype="float32", key_bias=False, calls_per_set_image=calls, max_abs_err=err,
             limit=FP32_ABS, max_abs_ref=ref_max, fault_errs=fault_errs, ok=ok, ms=ms,
             plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
             graph_ms=kernel_graph_ms, library_graph_ms=library_graph_ms,
@@ -2588,6 +2684,111 @@ def check_sam2_agreement() -> bool:
     return ok
 
 
+def counted_set_image(pred, image):
+    """One `set_image` with the launch counts set to 0 just before it: (wall
+    s, the counts after it, flash launches by attention shape (B', Nq, Nk,
+    H)): each of Hiera's calls reads the wrapper's count before and after."""
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+    from iggt_official_tpu_torch.sam2 import hiera
+
+    per_shape = collections.Counter()
+
+    def counted_attention(q, k, v):
+        before = fa.flash_attention.launches
+        out = fa.attention(q, k, v)
+        per_shape[(q.shape[0], q.shape[1], k.shape[1], q.shape[2])] += (
+            fa.flash_attention.launches - before)
+        return out
+
+    hiera.attention = counted_attention
+    try:
+        zero_counts()
+        wall = wall_s(lambda: pred.set_image(image))
+        launches = read_counts()
+    finally:
+        hiera.attention = fa.attention
+    return wall, launches, per_shape
+
+
+def per_image_ms(rows, calls) -> str:
+    """The Hiera rows' times summed over one `set_image`: each row's ms times
+    its launches there (``calls(row)``), for the kernel (events, graph), the
+    bound, the plain version and SDPA (events, graph)."""
+    keys = ("ms", "graph_ms", "bound_ms", "plain_ms", "library_ms", "library_graph_ms")
+    tot = {k: sum(r[k] * calls(r) for r in rows) for k in keys}
+    return (f"per set_image (launches x ms): kernel {tot['ms']:.3f} (graph "
+            f"{tot['graph_ms']:.3f}), bound {tot['bound_ms']:.3f}, plain {tot['plain_ms']:.3f}, "
+            f"SDPA {tot['library_ms']:.3f} (graph {tot['library_graph_ms']:.3f})")
+
+
+def plain_backbone_errors(pred, image):
+    """`set_image` again with Hiera's attention on `flash_attention_plain`:
+    (wall s, backbone_fpn's relative errors of the kernel's against it)."""
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+    from iggt_official_tpu_torch.sam2 import hiera
+
+    kernel_fpn = [f.clone() for f in pred._features["backbone_fpn"]]
+    hiera.attention = lambda q, k, v: fa.flash_attention_plain(q, k, v)
+    try:
+        plain_s = wall_s(lambda: pred.set_image(image))
+        errs = [rel_err(a, b) for a, b in zip(pred._features["backbone_fpn"], kernel_fpn)]
+    finally:
+        hiera.attention = fa.attention
+    return plain_s, errs
+
+
+def run_sam2_presets(launches_out: dict, preset_results=()) -> bool:
+    """`set_image` of the full-width Hiera-T, -S and -B+ image predictors
+    (random weights from the seed, 1024 px) on the seeded image: flash
+    launches per `set_image` (the sum of the preset's stages: 12, 16, 24),
+    split by attention shape, which must be `hiera_cases`'; the split fills
+    ``preset_results``' calls per `set_image`, the counts the D = 56 (B+)
+    and D = 96 (T + S) rows' launches; backbone_fpn against the same model
+    with Hiera's attention on the plain version within SAM2_TOL."""
+    import torch
+
+    from iggt_official_tpu_torch.sam2 import config as sam2_config
+    from iggt_official_tpu_torch.sam2.build import build_sam2_image_predictor
+
+    image = sam2_image()
+    ok = True
+    for preset, factory in HIERA_PRESETS.items():
+        cfg = getattr(sam2_config, factory)("2.1")
+        pred = build_sam2_image_predictor(cfg, device="cuda", seed=SEED)
+        pred.set_image(image)                 # warm-up
+        wall, launches, per_shape = counted_set_image(pred, image)
+        want = {k[:4]: v[1] for k, v in hiera_cases(cfg).items()}
+        D = cfg.hiera.embed_dim // cfg.hiera.num_heads
+        kernel = HIERA_PRESET_KERNEL[D]
+        for r in preset_results:
+            if r["kernel"] == kernel:
+                B, Nq, Nk, H, _ = r["shape"]
+                r["calls_per_set_image"][preset] = per_shape.get((B, Nq, Nk, H), 0)
+        launches_out[kernel] = launches_out.get(kernel, 0) + launches["flash_attention"]
+        plain_s, errs = plain_backbone_errors(pred, image)
+        problems = []
+        if dict(per_shape) != want:
+            problems.append(f"launches by shape {dict(per_shape)}, want {want}")
+        if launches["flash_attention"] != sum(cfg.hiera.stages) or launches[
+                "flash_attention_fused"]:
+            problems.append(f"launches {launches}, want flash {sum(cfg.hiera.stages)}")
+        if max(errs) > SAM2_TOL:
+            problems.append(f"kernel vs plain attention backbone_fpn {errs}")
+        ok &= not problems
+        rows = [r for r in preset_results if r["kernel"] == kernel]
+        log(f"[sam2] {factory}(\"2.1\") (head dim {D}) set_image {wall:.4f} s, flash "
+            f"launches {launches['flash_attention']} (want {sum(cfg.hiera.stages)}; by "
+            "(B', Nq, Nk, H): " + ", ".join(f"{k} x{v}" for k, v in sorted(per_shape.items()))
+            + f"); with plain attention {plain_s:.4f} s, backbone_fpn kernel vs plain "
+            + ", ".join(f"{e:.2e}" for e in errs)
+            + f" (limit {SAM2_TOL:.0e} of max|ref|); "
+            + per_image_ms(rows, lambda r: r["calls_per_set_image"][preset])
+            + f"; {'ok' if not problems else problems}")
+        del pred
+        torch.cuda.empty_cache()
+    return ok
+
+
 def run_sam2(launches_out: dict, hiera_results=()) -> bool:
     """The full-width SAM2 image path on the card: `build_sam2_image_predictor(
     sam2_hiera_l("2.1"), device="cuda", seed=SEED)` on a seeded 1280 x 960
@@ -2605,8 +2806,6 @@ def run_sam2(launches_out: dict, hiera_results=()) -> bool:
     card, whose backbone_fpn must agree with the kernel's within SAM2_TOL."""
     import torch
 
-    from iggt_official_tpu_torch.ops import flash_attention as fa
-    from iggt_official_tpu_torch.sam2 import hiera
     from iggt_official_tpu_torch.sam2.amg import SAM2AutomaticMaskGenerator, rle_to_mask
     from iggt_official_tpu_torch.sam2.build import build_sam2_image_predictor
     from iggt_official_tpu_torch.sam2.config import sam2_hiera_l
@@ -2614,6 +2813,10 @@ def run_sam2(launches_out: dict, hiera_results=()) -> bool:
     cfg = sam2_hiera_l("2.1")
     t0 = time.time()
     pred = build_sam2_image_predictor(cfg, device="cuda", seed=SEED)
+    if {k[:4]: v[1] for k, v in hiera_cases(cfg).items()} != {
+            (B, Nq, Nk, H): n for _, B, Nq, Nk, H, n in HIERA_CASES}:
+        log("[sam2] HIERA_CASES differ from hiera_cases(sam2_hiera_l)")
+        return False
     n_params = sum(p.numel() for p in pred.model.parameters())
     log(f"[sam2] full-width sam2_hiera_l(\"2.1\"): {n_params / 1e6:.1f} M parameters "
         f"(fp32), built in {time.time() - t0:.1f} s; image {SAM2_IMAGE[1]}x{SAM2_IMAGE[0]}, "
@@ -2623,22 +2826,8 @@ def run_sam2(launches_out: dict, hiera_results=()) -> bool:
     pred.set_image(image)                     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    per_shape = collections.Counter()
-
-    def counted_attention(q, k, v):
-        before = fa.flash_attention.launches
-        out = fa.attention(q, k, v)
-        per_shape[(q.shape[0], q.shape[1], k.shape[1], q.shape[2])] += (
-            fa.flash_attention.launches - before)
-        return out
-
-    hiera.attention = counted_attention
-    try:
-        zero_counts()
-        walls = [wall_s(lambda: pred.set_image(image))]
-        launches = read_counts()
-    finally:
-        hiera.attention = fa.attention
+    walls, launches, per_shape = counted_set_image(pred, image)
+    walls = [walls]
     want_split = {(B, Nq, Nk, H): calls for _, B, Nq, Nk, H, calls in HIERA_CASES}
     if dict(per_shape) != want_split:
         problems.append(f"set_image launches by shape {dict(per_shape)}, want {want_split}")
@@ -2691,13 +2880,7 @@ def run_sam2(launches_out: dict, hiera_results=()) -> bool:
         problems.append("the AMG with thresholds 0 kept no non-empty mask")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    kernel_fpn = [f.clone() for f in feats]
-    hiera.attention = lambda q, k, v: fa.flash_attention_plain(q, k, v)
-    try:
-        plain_s = wall_s(lambda: pred.set_image(image))
-        errs = [rel_err(a, b) for a, b in zip(pred._features["backbone_fpn"], kernel_fpn)]
-    finally:
-        hiera.attention = fa.attention
+    plain_s, errs = plain_backbone_errors(pred, image)
     if max(errs) > SAM2_TOL:
         problems.append(f"kernel vs plain attention backbone_fpn {errs}")
     ok = not problems
@@ -2705,7 +2888,8 @@ def run_sam2(launches_out: dict, hiera_results=()) -> bool:
         + ", ".join(f"{w:.4f}" for w in walls) + f"); flash launches per set_image "
         f"{launches['flash_attention']} (want {want}; by (B', Nq, Nk, H): "
         + ", ".join(f"{k} x{v}" for k, v in sorted(per_shape.items()))
-        + f"); backbone_fpn {shapes}; "
+        + f"); {per_image_ms(hiera_results, lambda r: r['calls_per_set_image'])}; "
+        f"backbone_fpn {shapes}; "
         + ", ".join(f"{k} {v:.3f} s" for k, v in t.items())
         + f"; AMG masks: defaults {amg_counts['defaults']}, thresholds 0 "
         f"{amg_counts['thresholds 0']}; peak {peak:.2f} GiB allocated")
@@ -2714,6 +2898,321 @@ def run_sam2(launches_out: dict, hiera_results=()) -> bool:
         + f" (limit {SAM2_TOL:.0e} of max|ref|); {'ok' if ok else problems}")
     del pred
     torch.cuda.empty_cache()
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase 8: SAM2 video propagation at full width
+
+VIDEO_FRAMES = 25
+VIDEO_SIZE = 1024
+VIDEO_POINTS = ((0.5, 0.5), (0.25, 0.3))   # each object's click, as fractions of (W, H)
+VIDEO_PLAIN_FRAMES = 4
+VIDEO_STREAM_TOL = (1e-4, 2e-4)             # rtol / atol of batch against streaming masks
+
+
+def prompt_video(pred, state, frames) -> None:
+    """A clean session: no cached features, no prompts; then one positive
+    click per object on frame 0."""
+    state["cached_features"].clear()
+    pred.reset_state(state)
+    H, W = frames[0].shape[:2]
+    for obj, (fx, fy) in enumerate(VIDEO_POINTS, start=1):
+        pred.add_new_points_or_box(state, frame_idx=0, obj_id=obj,
+                                   points=np.array([[fx * W, fy * H]]), labels=np.array([1]))
+
+
+def run_video(pred, state, frames, batch: bool, **kw):
+    """Prompt, then propagate; (wall s, masks (T, B, H, W) on the card)."""
+    import torch
+
+    out = []
+
+    def go():
+        prompt_video(pred, state, frames)
+        propagate = pred.propagate_in_video_batch if batch else pred.propagate_in_video
+        out.extend(m for _, _, m in propagate(state, **kw))
+
+    wall = wall_s(go)
+    return wall, torch.stack(out)
+
+
+class StepTimer:
+    """CUDA-event times of the video steps, summed by part: the image encoder
+    (forward_image), the memory attention, the SAM heads and the memory
+    encoder, wrapped on one model instance."""
+
+    PARTS = {"backbone": "forward_image", "heads": "forward_sam_heads",
+             "memory encoder": "encode_new_memory"}
+
+    def __init__(self, model):
+        import torch
+
+        self.model, self.events, self.handles = model, [], []
+        for part, name in self.PARTS.items():
+            setattr(model, name, self._wrap(getattr(model, name), part))
+        starts = []
+
+        def pre(*_):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            starts.append(e)
+
+        def post(*_):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.events.append(("memory attention", starts.pop(), e))
+
+        self.handles = [model.memory_attention.register_forward_pre_hook(pre),
+                        model.memory_attention.register_forward_hook(post)]
+
+    def _wrap(self, fn, part):
+        import torch
+
+        def timed(*args, **kw):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            self.events.append((part, a, b))
+            return out
+        return timed
+
+    def totals_ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        out = collections.defaultdict(float)
+        for part, a, b in self.events:
+            out[part] += a.elapsed_time(b)
+        return dict(out)
+
+    def close(self):
+        for name in self.PARTS.values():
+            delattr(self.model, name)
+        for h in self.handles:
+            h.remove()
+
+
+def check_video_agreement() -> bool:
+    """`SAM2Config().scaled(embed_dim=72)` video predictor on the card (the
+    D = 72 flash kernel in every Hiera block) and on the CPU, same weights:
+    5 seeded 48x64 frames, two objects clicked on frame 0, the masks of
+    `propagate_in_video` and `propagate_in_video_batch` within SAM2_TOL of
+    max|ref|."""
+    import torch
+
+    from iggt_official_tpu_torch.sam2.build import build_sam2_video_predictor
+    from iggt_official_tpu_torch.sam2.config import SAM2Config
+
+    cfg = SAM2Config().scaled(embed_dim=72)
+    cpu = build_sam2_video_predictor(cfg, device="cpu", seed=SEED)
+    card = build_sam2_video_predictor(cfg, device="cuda", seed=SEED)
+    card.model.load_state_dict(cpu.model.state_dict())
+    rng = np.random.default_rng(SEED)
+    frames = [rng.integers(0, 255, (48, 64, 3), dtype=np.uint8) for _ in range(5)]
+    errs = {}
+    for batch in (False, True):
+        masks = {}
+        for dev, pred in (("cpu", cpu), ("cuda", card)):
+            state = pred.init_state(frames)
+            masks[dev] = run_video(pred, state, frames, batch)[1]
+        errs["batch" if batch else "streaming"] = rel_err(masks["cpu"], masks["cuda"])
+    ok = all(e <= SAM2_TOL for e in errs.values())
+    log(f"[sam2_video] scaled SAM2 (embed 72) video, card vs CPU, same weights, 5 frames, "
+        f"2 objects: masks " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (limit {SAM2_TOL:.0e} of max|ref|) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_sam2_video(launches_out: dict) -> bool:
+    """The slice's full-width path: `build_sam2_video_predictor(sam2_hiera_l(
+    "2.1"), device="cuda", seed=SEED)` on VIDEO_FRAMES seeded VIDEO_SIZE^2
+    frames from the benchmark's own `load_frames`, two objects clicked on
+    frame 0.  `propagate_in_video` and `propagate_in_video_batch` in turns
+    (streaming, batch, batch, streaming after a warm-up of each): masks of
+    the batch loop within VIDEO_STREAM_TOL of streaming's, 48 flash launches
+    per encoded frame (counted on the first timed streaming run, counts set
+    to 0 just before it), frames/s of each path, the per-frame split of a
+    streaming run (CUDA events), peak memory; then VIDEO_PLAIN_FRAMES frames
+    with Hiera's attention on the plain version, masks within SAM2_TOL of
+    the kernel's; then the benchmark entry point in its own process."""
+    import torch
+
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+    from iggt_official_tpu_torch.sam2 import hiera
+    from iggt_official_tpu_torch.sam2.benchmark import load_frames
+    from iggt_official_tpu_torch.sam2.build import build_sam2_video_predictor
+    from iggt_official_tpu_torch.sam2.config import sam2_hiera_l
+
+    cfg = sam2_hiera_l("2.1")
+    pred = build_sam2_video_predictor(cfg, device="cuda", seed=SEED)
+    frames = load_frames(None, VIDEO_FRAMES, VIDEO_SIZE)
+    state = pred.init_state(frames)
+    problems = []
+    for batch in (False, True):                         # warm-up
+        run_video(pred, state, frames, batch)
+    torch.cuda.reset_peak_memory_stats()
+    walls = {"streaming": [], "batch": []}
+    masks = {}
+    for i, batch in enumerate((False, True, True, False)):
+        name = "batch" if batch else "streaming"
+        if i == 0:
+            zero_counts()
+        wall, m = run_video(pred, state, frames, batch)
+        if i == 0:
+            launches = read_counts()
+        walls[name].append(wall)
+        masks.setdefault(name, m)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = sum(cfg.hiera.stages) * VIDEO_FRAMES
+    if launches["flash_attention"] != want or launches["flash_attention_fused"]:
+        problems.append(f"launches {launches}, want flash {want}")
+    launches_out["flash_attention_hiera_video"] = launches["flash_attention"]
+    T, B = masks["streaming"].shape[:2]
+    if (T, B) != (VIDEO_FRAMES, len(VIDEO_POINTS)) or masks["batch"].shape != masks[
+            "streaming"].shape:
+        problems.append(f"masks {tuple(masks['streaming'].shape)} / "
+                        f"{tuple(masks['batch'].shape)}")
+    if not bool(torch.isfinite(masks["streaming"]).all()):
+        problems.append("non-finite masks")
+    rtol, atol = VIDEO_STREAM_TOL
+    diff = (masks["batch"] - masks["streaming"]).abs()
+    over = (diff > atol + rtol * masks["streaming"].abs()).sum().item()
+    if over:
+        problems.append(f"batch vs streaming: {over} mask logits past rtol {rtol} / atol {atol}")
+    fg = (masks["streaming"] > 0).float().mean().item()
+
+    timer = StepTimer(pred.model)
+    try:
+        run_video(pred, state, frames, False)
+        parts = timer.totals_ms()
+    finally:
+        timer.close()
+
+    kw = {"max_frame_num_to_track": VIDEO_PLAIN_FRAMES - 1}
+    kernel_masks = run_video(pred, state, frames, False, **kw)[1]
+    hiera.attention = lambda q, k, v: fa.flash_attention_plain(q, k, v)
+    try:
+        plain_masks = run_video(pred, state, frames, False, **kw)[1]
+    finally:
+        hiera.attention = fa.attention
+    plain_err = rel_err(plain_masks, kernel_masks)
+    if plain_err > SAM2_TOL:
+        problems.append(f"kernel vs plain attention masks {plain_err:.3e}")
+    fps = {k: VIDEO_FRAMES / float(np.median(v)) for k, v in walls.items()}
+    ok = not problems
+    log(f"[sam2_video] sam2_hiera_l(\"2.1\") video predictor, {VIDEO_FRAMES} frames "
+        f"{VIDEO_SIZE}x{VIDEO_SIZE}, model resolution {cfg.image_size}, {B} objects: "
+        + ", ".join(f"{k} {fps[k]:.2f} frames/s (runs " + ", ".join(f"{w:.3f}" for w in v)
+                    + " s)" for k, v in walls.items())
+        + f"; flash launches in one streaming run {launches['flash_attention']} (want {want}: "
+        f"48 per encoded frame); batch vs streaming masks max |diff| {diff.max().item():.3e} "
+        f"(rtol {rtol} / atol {atol}); foreground share {fg:.4f}; peak {peak:.2f} GiB "
+        f"allocated; {'ok' if ok else problems}")
+    log(f"[sam2_video] per-frame split of one streaming run (CUDA events, ms per frame): "
+        + ", ".join(f"{k} {v / VIDEO_FRAMES:.3f}" for k, v in parts.items())
+        + f"; {VIDEO_PLAIN_FRAMES} frames with Hiera's attention on flash_attention_plain: "
+        f"masks kernel vs plain {plain_err:.2e} (limit {SAM2_TOL:.0e} of max|ref|)")
+    del pred, state, masks
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "iggt_official_tpu_torch.sam2.benchmark", "--preset", "l",
+           "--image_size", str(VIDEO_SIZE), "--size", str(VIDEO_SIZE)]
+    t = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("FPS", "Total Time"))]
+    if proc.returncode != 0 or len(lines) != 2:
+        ok = False
+        log(f"[sam2_video] benchmark exit {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"[sam2_video] python -m iggt_official_tpu_torch.sam2.benchmark --preset l "
+        f"--image_size {VIDEO_SIZE} --size {VIDEO_SIZE} ({time.time() - t:.1f} s with its "
+        f"start-up): " + " | ".join(lines))
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase 9: batch scene evaluation with its gate
+
+BATCH_SCENES = ((3, True), (8, False))       # (views, with ground truth)
+BATCH_SIZE = (504, 336)                      # (W, H)
+
+
+def npz_bytes_equal(a_path: str, b_path: str) -> list:
+    """The keys of two npz files whose arrays differ in dtype, shape or bytes."""
+    with np.load(a_path) as a, np.load(b_path) as b:
+        if sorted(a.files) != sorted(b.files):
+            return ["key sets"]
+        return [k for k in a.files if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+                or a[k].tobytes() != b[k].tobytes()]
+
+
+def run_batch_eval(proc, tmp: str, launches_out: dict) -> bool:
+    """`app/batch_eval.run_scenes` on the requests phase's processor over two
+    written scenes (BATCH_SCENES), after each scene through a serial
+    `process_scene`: every scene's predictions.npz byte-equal to its serial
+    run's, the launch counts of the batch run (set to 0 just before it)
+    equal to the sum of the serial runs', summary.json written; then the
+    gate against the serial outputs as goldens (must pass) and against a
+    golden whose depth is scaled by 1.02 (must fail)."""
+    from iggt_official_tpu_torch.app import batch_eval
+    from iggt_official_tpu_torch.config import RuntimeConfig
+    from iggt_official_tpu_torch.eval.gate import run_gate
+
+    proc.runtime = RuntimeConfig(image_size=BATCH_SIZE)
+    root = os.path.join(tmp, "batch_scenes")
+    dirs = [write_scene(root, S, SEED + 20 + S, gt=gt) for S, gt in BATCH_SCENES]
+    scenes = batch_eval.list_scenes(root)
+    serial_root = os.path.join(tmp, "batch_serial")
+    want = collections.Counter()
+    serial_s = 0.0
+    for scene in scenes:
+        zero_counts()
+        serial_s += wall_s(lambda: proc.process_scene(
+            scene, os.path.join(serial_root, os.path.basename(scene))))
+        want.update(read_counts())
+    out_root = os.path.join(tmp, "batch_out")
+    zero_counts()
+    got = {}
+    batch_s = wall_s(lambda: got.update(zip(("summary", "kept"), batch_eval.run_scenes(
+        proc, scenes, out_root, keep_predictions=True))))
+    counts = read_counts()
+    problems = []
+    for scene in scenes:
+        name = os.path.basename(scene)
+        bad = npz_bytes_equal(os.path.join(out_root, name, "predictions.npz"),
+                              os.path.join(serial_root, name, "predictions.npz"))
+        if bad:
+            problems.append(f"{name}: predictions differ from serial process_scene in {bad}")
+    if counts != dict(want):
+        problems.append(f"launches {counts}, want the serial sum {dict(want)}")
+    summary = got["summary"]
+    if not os.path.exists(os.path.join(out_root, "summary.json")) or summary["num_views"] != sum(
+            S for S, _ in BATCH_SCENES) or "absrel" not in summary["metrics"].get("depth", {}):
+        problems.append(f"summary {summary}")
+    table, passed = run_gate(got["kept"], serial_root)
+    bad_root = os.path.join(tmp, "batch_golden_x1.02")
+    name = os.path.basename(dirs[0])
+    os.makedirs(os.path.join(bad_root, name))
+    with np.load(os.path.join(serial_root, name, "predictions.npz")) as g:
+        golden = {k: g[k] for k in g.files}
+    golden["depth"] = golden["depth"] * np.float32(1.02)
+    np.savez(os.path.join(bad_root, name, "predictions.npz"), **golden)
+    bad_table, bad_passed = run_gate({name: got["kept"][name]}, bad_root)
+    if not passed or bad_passed:
+        problems.append(f"gate: self-goldens pass {passed}, depth x1.02 pass {bad_passed}")
+    launches_out["batch_eval"] = counts
+    views = summary["num_views"]
+    ok = not problems
+    log(f"[batch_eval] {len(scenes)} scenes ({views} views at {BATCH_SIZE[0]}x{BATCH_SIZE[1]}): batch loop "
+        f"{batch_s:.3f} s ({views / batch_s:.2f} views/s end to end, summary "
+        f"{summary['views_per_sec_end_to_end']:.2f}), serial process_scene {serial_s:.3f} s "
+        f"({views / serial_s:.2f} views/s); launches {counts} (serial sum {dict(want)}); "
+        f"predictions byte-equal to serial: {not any('differ' in p for p in problems)}; "
+        f"gate against self-goldens {'PASS' if passed else 'FAIL'}, against depth x1.02 "
+        f"{'PASS' if bad_passed else 'FAIL'}; {'ok' if ok else problems}")
+    for line in (table + "\n" + bad_table).splitlines():
+        log(f"[batch_eval]   {line}")
     return ok
 
 
@@ -2743,7 +3242,7 @@ def build_all() -> None:
 
 
 def main(phases=("device", "build", "kernels", "agreement", "postproc", "requests",
-                 "sam2")) -> int:
+                 "batch_eval", "sam2", "sam2_video")) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2779,13 +3278,24 @@ def main(phases=("device", "build", "kernels", "agreement", "postproc", "request
     if "postproc" in phases:
         ok &= run_postproc(launches)
     if "requests" in phases:
-        ok &= run_requests(launches, extra)
+        ok &= run_requests(launches, extra, phases)
+    elif "batch_eval" in phases:                 # alone, on a processor of its own
+        from iggt_official_tpu_torch.app.demo import IGGTProcessor
+
+        with tempfile.TemporaryDirectory() as tmp:
+            ok &= run_batch_eval(IGGTProcessor(device="cuda", seed=SEED), tmp, launches)
     if "sam2" in phases:
         hiera = check_hiera_kernels()
-        results += hiera
-        ok &= all(r["ok"] for r in hiera)
+        presets = [r for D, cases in hiera_preset_cases().items()
+                   for r in check_hiera_kernels(D, cases, HIERA_PRESET_KERNEL[D])]
+        results += hiera + presets
+        ok &= all(r["ok"] for r in hiera + presets)
         ok &= check_sam2_agreement()
         ok &= run_sam2(launches, hiera)
+        ok &= run_sam2_presets(launches, presets)
+    if "sam2_video" in phases:
+        ok &= check_video_agreement()
+        ok &= run_sam2_video(launches)
 
     summary = kernels_summary(results, launches, extra) if results else []
     log(json.dumps({"kernels": summary}))

@@ -157,18 +157,25 @@ class IGGTProcessor:
         return model
 
     def process_scene(self, target_dir: str, save_dir: str,
+                      preds: Optional[Dict[str, Any]] = None,
+                      gt_data: Optional[Dict[str, Any]] = None,
                       trace: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
         """Forward, post-processing, evaluation against ground truth when the
         scene has it, and the exports.  Returns ``{"predictions": ...}``, plus
-        ``"evaluation"`` with ground truth.  A ``trace`` dict receives each
-        stage's wall seconds (the device synchronized at its end), those of
-        `_post_process` included."""
+        ``"evaluation"`` with ground truth.  ``preds`` (`_run_inference`'s
+        output) and ``gt_data`` (`_load_gt_data`'s) may come in computed
+        already: `app/batch_eval.py` loads the next scene's ground truth and
+        runs its forward on a worker thread while this one post-processes.
+        A ``trace`` dict receives each stage's wall seconds (the device
+        synchronized at its end), those of `_post_process` included."""
         t0 = time.perf_counter()
         os.makedirs(save_dir, exist_ok=True)
-        gt_data = self._load_gt_data(target_dir)
-        t0 = trace_stage(trace, "ground truth load", t0)
-        preds = self._run_inference(target_dir)
-        t0 = trace_stage(trace, "forward", t0, self.device)
+        if gt_data is None:
+            gt_data = self._load_gt_data(target_dir)
+            t0 = trace_stage(trace, "ground truth load", t0)
+        if preds is None:
+            preds = self._run_inference(target_dir)
+            t0 = trace_stage(trace, "forward", t0, self.device)
         preds = self._post_process(preds, trace=trace)
         t0 = time.perf_counter()
         preds = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v

@@ -3,8 +3,7 @@
 The model dataclasses keep the JAX package's field names and defaults for
 everything the port builds, so `ModelConfig().scaled(...)` describes the
 same network in both packages.  Fields that select code not ported yet (the
-upstream-HAT window partition and the TPU mesh) are left out until that code
-lands.
+TPU mesh) are left out until that code lands.
 """
 
 from __future__ import annotations
@@ -115,6 +114,10 @@ class PartHeadConfig:
     window_size: int = 8
     ca_num_heads: int = 8
     swin_num_heads: int = 4
+    # "reference" replicates the checkpoint's channel-scrambled OCAB q
+    # partition (`window_sa.py:280-287`); "hat" is the spatially-correct
+    # variant for from-scratch training
+    q_window_mode: str = "reference"
     frames_chunk_size: int = 8
 
 

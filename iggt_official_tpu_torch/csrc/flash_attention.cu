@@ -580,7 +580,11 @@ constexpr int PREP_THREADS = 256;
 // (columns 64..95) is zero-filled past column 72, so S = Q.K^T runs its 9
 // k8 steps on panels 0..2 and never reads the padding; V^T panels hold 72
 // rows (9 groups of 8) for the m64n72k8 P.V.  Its 180 KB leave room for one
-// K/V stage only.
+// K/V stage only.  D = 96 (Hiera-T and -S) fills three panels with nothing
+// to pad, 12 k8 steps and m64n96k8, one stage of 96 KB; D = 56 (Hiera-B+)
+// reads 224-byte rows in place through two panels, the second zero-filled
+// past column 56: 7 k8 steps, m64n56k8, two stages of 60 KB.  The softmax
+// scale is the caller's (D^-1/2), never that of the padded width.
 template <int D>
 struct TfLayout {
   static constexpr int PANELS = (D + 31) / 32;
@@ -591,7 +595,7 @@ struct TfLayout {
   static constexpr int Q_BYTES = 2 * PANELS * Q_PANEL;          // hi panels, then lo
   static constexpr int K_BYTES = 2 * PANELS * K_PANEL;
   static constexpr int STAGE_BYTES = K_BYTES + 2 * V_PANELS * V_PANEL;
-  static constexpr int STAGES = D == 32 ? 4 : D == 64 ? 2 : 1;  // 32 / 64 / 84 KB stages
+  static constexpr int STAGES = D == 32 ? 4 : D <= 64 ? 2 : 1;  // 32 / 60-64 / 84-96 KB stages
   static constexpr size_t q = 0;                                // every panel 1024-byte aligned
   static constexpr size_t kv = Q_BYTES;
   static constexpr size_t bars = kv + (size_t)STAGES * STAGE_BYTES;
@@ -607,13 +611,14 @@ __host__ __device__ inline long long padded_keys(int Nk) {
 // transposes and splits a 64-key tile of one (b, h) of V through shared
 // memory, keys permuted.  fault (planted faults of the card check, 0 on
 // every call of the port): bit 1 leaves the keys unpermuted, bit 2 drops
-// V's last 8 head-dim columns.  D = 72 rows take no q/k prep (nothing runs
-// SAM2's attention fused).
+// V's last 8 head-dim columns.  D = 56 / 72 / 96 rows take no q/k prep
+// (nothing runs SAM2's attention fused).
 template <int D>
 __global__ void __launch_bounds__(tf::PREP_THREADS)
     flash_kernel_tf32_prep(const Args a, float* __restrict__ scratch, int fault) {
   constexpr int E = (D + 31) / 32;
   constexpr bool WHOLE = D % 32 == 0;            // every lane owns E columns
+  constexpr bool PREP = D == 32 || D == 64;      // the fused q/k prep's head dims
   const int BH = a.B * a.H;
   const long long nk_pad = padded_keys(a.Nk);
   float* qs = scratch;
@@ -647,7 +652,7 @@ __global__ void __launch_bounds__(tf::PREP_THREADS)
         }
       }
     }
-    if constexpr (WHOLE) {
+    if constexpr (PREP) {
 #pragma unroll
       for (int r = 0; r < PREP_ROWS; ++r) {
         if (row0 + r < rows) {
@@ -705,10 +710,14 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 template <int D>
 __device__ __forceinline__ void wgmma_tf32_pv(float (&d)[D / 2], const uint32_t (&a)[4],
                                               uint64_t db, int acc) {
-  if constexpr (D == 72) {
+  if constexpr (D == 96) {
+    wgmma_tf32_rs_n96(d, a, db, acc);
+  } else if constexpr (D == 72) {
     wgmma_tf32_rs_n72(d, a, db, acc);
   } else if constexpr (D == 64) {
     wgmma_tf32_rs_n64(d, a, db, acc);
+  } else if constexpr (D == 56) {
+    wgmma_tf32_rs_n56(d, a, db, acc);
   } else {
     wgmma_tf32_rs_n32(d, a, db, acc);
   }
@@ -1054,7 +1063,8 @@ long long iggt_flash_fp32_scratch_floats(int B, int H, int Nq, int Nk, int head_
 // use_rope preps q and k into q_prep / k_prep (contiguous (B, Nq, H, D) and
 // (B, Nk, H, D) scratch) first; fp32 always splits q, k and V^T into q_prep
 // (iggt_flash_fp32_scratch_floats floats, 16-byte aligned; k_prep unused).
-// head_dim: 32 or 64; 72 (SAM2's Hiera) in fp32 without use_norm / use_rope.
+// head_dim: 32 or 64; 56, 72 and 96 (SAM2's Hiera) in fp32 without use_norm /
+// use_rope.
 // fault (fp32 only, 0 on every call of the port): the planted faults of
 // run_fp32.  Returns a cudaError_t (0 on success).
 int iggt_flash_attention(
@@ -1090,14 +1100,17 @@ int iggt_flash_attention(
   a.scale = scale; a.eps = eps;
   const bool has_bias = key_bias != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 72 && (dtype != 0 || fused)) return (int)cudaErrorInvalidValue;
-  if (head_dim != 32 && head_dim != 64 && head_dim != 72) return (int)cudaErrorInvalidValue;
+  const bool hiera = head_dim == 56 || head_dim == 72 || head_dim == 96;
+  if (hiera && (dtype != 0 || fused)) return (int)cudaErrorInvalidValue;
+  if (head_dim != 32 && head_dim != 64 && !hiera) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
     float* split = static_cast<float*>(q_prep);
     err = head_dim == 32   ? run_fp32<32>(a, split, fault, s)
+          : head_dim == 56 ? run_fp32<56>(a, split, fault, s)
           : head_dim == 64 ? run_fp32<64>(a, split, fault, s)
-                           : run_fp32<72>(a, split, fault, s);
+          : head_dim == 72 ? run_fp32<72>(a, split, fault, s)
+                           : run_fp32<96>(a, split, fault, s);
   } else if (dtype == 1) {
     err = head_dim == 32 ? run_bf16<32>(a, fused, has_bias, q_prep, k_prep, s)
                          : run_bf16<64>(a, fused, has_bias, q_prep, k_prep, s);

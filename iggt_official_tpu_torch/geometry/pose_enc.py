@@ -1,6 +1,6 @@
-"""Camera pose decode: 9-D absT_quaR_FoV encoding -> (extrinsic, intrinsic).
+"""Camera pose codec: (extrinsic, intrinsic) <-> 9-D absT_quaR_FoV encoding.
 
-Counterpart of `iggt_official_tpu/geometry/pose_enc.py`'s decoder.  Layout:
+Counterpart of `iggt_official_tpu/geometry/pose_enc.py`.  Layout:
 [:3] translation, [3:7] XYZW quaternion, [7] fov_h, [8] fov_w.  Extrinsics
 are OpenCV world->camera [R|t] (..., 3, 4); intrinsics are in pixels with
 the principal point at the image center.
@@ -12,7 +12,18 @@ from typing import Tuple
 
 import torch
 
-from iggt_official_tpu_torch.geometry.rotation import quat_to_mat
+from iggt_official_tpu_torch.geometry.rotation import mat_to_quat, quat_to_mat
+
+
+def extri_intri_to_pose_encoding(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
+                                 image_size_hw: Tuple[int, int]) -> torch.Tensor:
+    """(..., 3, 4) + (..., 3, 3) -> (..., 9) fp32 (`pose_enc.py:11-63`)."""
+    quat = mat_to_quat(extrinsics[..., :3, :3])
+    H, W = image_size_hw
+    fov_h = 2 * torch.atan((H / 2) / intrinsics[..., 1, 1])
+    fov_w = 2 * torch.atan((W / 2) / intrinsics[..., 0, 0])
+    return torch.cat([extrinsics[..., :3, 3], quat, fov_h[..., None], fov_w[..., None]],
+                     dim=-1).float()
 
 
 def pose_encoding_to_extri_intri(

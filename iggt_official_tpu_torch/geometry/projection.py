@@ -62,3 +62,15 @@ def unproject_depth_map_to_point_map(depth_map: torch.Tensor, extrinsics_cam: to
         depth_map = depth_map[..., 0]
     world, _, _ = depth_to_world_coords_points(depth_map, extrinsics_cam, intrinsics_cam)
     return world
+
+
+def project_world_points_to_pixels(world_points: torch.Tensor, extrinsic: torch.Tensor,
+                                   intrinsic: torch.Tensor, eps: float = 1e-8
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of the unprojection: world points (..., N, 3) and camera-from-
+    world extrinsics (..., 3, 4) -> (pixel uv (..., N, 2), depth (..., N))."""
+    R = extrinsic[..., :3, :3]
+    t = extrinsic[..., :3, 3]
+    cam = torch.einsum("...ij,...nj->...ni", R, world_points) + t[..., None, :]
+    uvw = torch.einsum("...ij,...nj->...ni", intrinsic, cam)
+    return uvw[..., :2] / torch.clamp(uvw[..., 2:3], min=eps), cam[..., 2]

@@ -41,7 +41,7 @@ class PartHead(nn.Module):
         self.window_self_atten = SwinSA(f // 2, f // 2, cfg.swin_num_heads, cfg.window_size,
                                         dtype=dtype)
         self.window_cross_attention = SwinCA(f, f, cfg.swin_num_heads, cfg.window_size,
-                                             dtype=dtype)
+                                             q_window_mode=cfg.q_window_mode, dtype=dtype)
 
     def forward(self, projector_features: Sequence[torch.Tensor],
                 point_features: Sequence[torch.Tensor], images_hw: Tuple[int, int],

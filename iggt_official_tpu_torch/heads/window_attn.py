@@ -7,9 +7,10 @@ Counterpart of `iggt_official_tpu/heads/window_attn.py`:
   against (ws + ws/2)^2 key/value windows with a relative-position bias).
 
 The windowed attention is plain matmul-softmax, as in the JAX package (it is
-computed outside any Pallas kernel there).  OCAB replicates the checkpoint's
-channel-scrambled q partition (the JAX package's default
-``q_window_mode="reference"``).  Windows are
+computed outside any Pallas kernel there).  OCAB's ``q_window_mode``:
+"reference" (the default) replicates the checkpoint's channel-scrambled q
+partition, "hat" takes the spatially-correct upstream-HAT partition (for
+training from scratch), as in the JAX package.  Windows are
 unshifted (the shipped config uses shift 0); sizes that are not multiples of
 the window are edge-padded and cropped back.  Module names follow the
 reference checkpoint (`patch_embed.norm`, `atten_block.attn.qkv`,
@@ -175,12 +176,17 @@ class HAB(nn.Module):
 
 
 class OCAB(nn.Module):
-    """Overlapping-window cross-attention block; q, k and v share ``norm1``."""
+    """Overlapping-window cross-attention block; q, k and v share ``norm1``.
+    ``q_window_mode``: "reference" (the checkpoint's scrambled q partition)
+    or "hat" (row-major ws x ws windows)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 8,
                  overlap_ratio: float = 0.5, mlp_ratio: float = 2.0,
-                 dtype: torch.dtype = torch.float32):
+                 q_window_mode: str = "reference", dtype: torch.dtype = torch.float32):
         super().__init__()
+        if q_window_mode not in ("reference", "hat"):
+            raise ValueError(f"unknown q_window_mode {q_window_mode!r}")
+        self.q_window_mode = q_window_mode
         ws = window_size
         ows = int(ws * overlap_ratio) + ws
         self.num_heads = num_heads
@@ -208,7 +214,10 @@ class OCAB(nn.Module):
         kk, _ = _pad_to_multiple(kk, ws)
         vv, _ = _pad_to_multiple(vv, ws)
         Hp, Wp = q.shape[1], q.shape[2]
-        qw = scrambled_q_partition(q, ws)
+        if self.q_window_mode == "reference":
+            qw = scrambled_q_partition(q, ws)
+        else:
+            qw = window_partition(q, ws)
         kw = extract_overlapping_windows(kk, ws, ows)
         vw = extract_overlapping_windows(vv, ws, ows)
         hd = C // self.num_heads
@@ -269,12 +278,13 @@ class SwinCA(nn.Module):
 
     def __init__(self, embed_dim: int, out_chans: int, num_heads: int = 4,
                  window_size: int = 8, overlap_ratio: float = 0.5,
-                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
+                 mlp_ratio: float = 4.0, q_window_mode: str = "reference",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.patch_embed = _PatchNorm(embed_dim)
         self.atten_block = OCAB(embed_dim, num_heads, window_size, overlap_ratio, mlp_ratio,
-                                dtype=dtype)
+                                q_window_mode=q_window_mode, dtype=dtype)
         self.norm = LayerNorm(embed_dim)
         self.conv_after_body, self.conv_before_upsample, self.conv_last = _conv_tail(
             embed_dim, out_chans, dtype)

@@ -110,6 +110,8 @@ def load() -> ctypes.CDLL:
     lib.ccl2d.argtypes = [ctypes.POINTER(ctypes.c_uint8), i64, i64, i64,
                           ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
     lib.ccl2d.restype = None
+    lib.wdbscan.argtypes = [f32, pi64, i64, i64, ctypes.c_float, i64, pi64]
+    lib.wdbscan.restype = None
     return lib
 
 
@@ -128,6 +130,19 @@ def connected_components(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     load().ccl2d(_ptr(mask, ctypes.c_uint8), b, h, w,
                  _ptr(labels, ctypes.c_int32), _ptr(areas, ctypes.c_int32))
     return labels, areas
+
+
+def weighted_dbscan(points: np.ndarray, weights: np.ndarray, eps: float,
+                    min_samples: int) -> np.ndarray:
+    """Weighted DBSCAN over (n, d) points (`ops/cluster.py::weighted_dbscan`'s
+    semantics): labels int64 (n,), -1 = noise."""
+    points = np.ascontiguousarray(points, np.float32)
+    weights = np.ascontiguousarray(weights, np.int64)
+    n, d = points.shape
+    labels = np.empty(n, np.int64)
+    load().wdbscan(_ptr(points, ctypes.c_float), _ptr(weights, ctypes.c_int64), n, d,
+                   ctypes.c_float(eps), int(min_samples), _ptr(labels, ctypes.c_int64))
+    return labels
 
 
 def hdbscan_mst_labels(edge_a, edge_b, edge_d, weights, core, eps: float,

@@ -14,7 +14,8 @@
 // native/postproc.cpp, code unchanged (the clustering tests hold the two
 // packages' host paths to equal masks).  The port's native/__init__.py builds
 // it with g++ at first use and loads it via ctypes — no pybind11 dependency.
-// The port calls the kNN, 1-NN, MST and HDBSCAN-labelling entry points.
+// The port calls the kNN, 1-NN, MST, HDBSCAN-labelling and weighted-DBSCAN
+// entry points.
 
 #include <algorithm>
 #include <cmath>

@@ -91,6 +91,15 @@ class _UnionFind:
             self.parent[rb] = ra
 
 
+def weighted_dbscan(points: np.ndarray, weights: np.ndarray, eps: float,
+                    min_samples: int) -> np.ndarray:
+    """DBSCAN over weighted points (cells), through the native KD-tree: a point
+    is core iff the total weight within eps (itself included) is >=
+    min_samples; core points within eps merge; a non-core point joins the
+    cluster of its nearest core point within eps.  Labels (K,), -1 = noise."""
+    return native.weighted_dbscan(points, weights, eps, min_samples)
+
+
 def _weighted_core_distances(points: np.ndarray, weights: np.ndarray, min_samples: int
                              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-cell core distance treating a cell of weight m as m coincident
@@ -845,3 +854,33 @@ def colorize_masks(masks: np.ndarray) -> np.ndarray:
     lut = np.zeros((int(unique.max()) + 2 if n_colors else 2, 3), np.uint8)
     lut[unique + 1] = colors[:n_colors]
     return lut[masks + 1]
+
+
+def cluster_features_to_masks(feature_map, method: str = "dbscan", apply_colormap: bool = False,
+                              n_clusters: int = 5, eps: float = 0.06, min_samples: int = 100,
+                              min_cluster_size: int = 500
+                              ) -> Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]:
+    """Per-view clustering (`misc.py:174-269`): each view's (H, W, C) features
+    on their own, "dbscan" through `cluster_features_to_masks_mv` (the
+    weighted HDBSCAN of one view), "kmeans" through scikit-learn's
+    MiniBatchKMeans (imported in that branch only).  Masks (N, H, W) int64,
+    and with ``apply_colormap`` their colours."""
+    feature_map = _to_numpy(feature_map)
+    n, h, w, c = feature_map.shape
+    masks = np.zeros((n, h, w), np.int64)
+    for i in range(n):
+        if method == "kmeans":
+            from sklearn.cluster import MiniBatchKMeans
+
+            flat = feature_map[i].reshape(-1, c).astype(np.float32)
+            labels = MiniBatchKMeans(n_clusters=n_clusters, n_init="auto").fit_predict(flat)
+        elif method == "dbscan":
+            labels = cluster_features_to_masks_mv(
+                feature_map[i:i + 1], eps=eps, min_samples=min_samples,
+                min_cluster_size=min_cluster_size).reshape(-1)
+        else:
+            raise ValueError(f"unknown method {method}")
+        masks[i] = labels.reshape(h, w)
+    if not apply_colormap:
+        return masks
+    return masks, colorize_masks(masks)

@@ -5,8 +5,9 @@ kernels of that module map onto `csrc/flash_attention.cu`:
 
 - `flash_attention`: non-causal softmax(Q K^T D^-1/2 + key_bias) V, online
   softmax in fp32, for (B, N, H, D) tensors with D in {32, 64} and dtype in
-  {bf16, fp32}, and D = 72 in fp32 (SAM2's Hiera: every head is 72 wide,
-  in windows of 16 to 4096 keys, with pooled queries Nq = Nk / 4).  bf16
+  {bf16, fp32}, and D in {56, 72, 96} in fp32 (SAM2's Hiera: every head of
+  Hiera-B+ is 56 wide, of Hiera-L 72, of Hiera-T and -S 96, in windows of
+  16 to 4096 keys, with pooled queries Nq = Nk / 4).  bf16
   runs a wgmma kernel fed by TMA, which reads q/k/v in place through tensor
   maps (`_check_tma`).  fp32 runs three TF32 passes on
   wgmma (hi.hi + hi.lo + lo.hi, which hold 1e-5 where one pass cannot): a
@@ -50,7 +51,7 @@ import torch
 from iggt_official_tpu_torch.ops import cuda_build
 
 HEAD_DIMS = (32, 64)
-FP32_HEAD_DIMS = HEAD_DIMS + (72,)   # flash_attention in fp32 only, no q/k prep
+FP32_HEAD_DIMS = (32, 64, 56, 72, 96)   # 56 / 72 / 96: flash_attention in fp32 only
 LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -230,9 +231,10 @@ def _prep_args(cos, sin, norm, B, N, D, device):
 
 # planted faults of the fp32 path, for the card check only (`_launch`'s fault)
 FP32_FAULTS = {"one TF32 pass": 1, "V^T without the key permutation": 2}
-# and of its Hiera shapes (D = 72: the panels pad the head dim to 96; windows
-# of 16 keys, under one 64-key tile)
-HIERA_FAULTS = {"scale 1/sqrt(96) of the padded head dim": 8,
+# and of its Hiera shapes (the panels pad D = 56 to 64 and D = 72 to 96, so
+# the padded scale is a fault at those two; windows of 16 keys, under one
+# 64-key tile)
+HIERA_FAULTS = {"softmax scale of the padded head dim": 8,
                 "V without its last 8 head-dim columns": 4,
                 "last key tile dropped": 16, "one key past Nk admitted": 32}
 _FAULT_BITS = {**FP32_FAULTS, **HIERA_FAULTS}

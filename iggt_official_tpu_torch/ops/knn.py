@@ -11,6 +11,8 @@ Counterpart of `iggt_official_tpu/ops/knn.py`:
   share a 30-bit code at 1-2M points), and a stable sort of the candidates'
   distances, whose first k are the lowest-position ones among equal
   distances, as `lax.top_k` takes them.
+- `knn_smooth_features_exact` smooths over the true k nearest neighbours
+  (the reference's semantics), from the native KD-tree on the host.
 - `brute_knn` is exact kNN in query blocks: |q|^2 + |r|^2 - 2 q.r with a
   full-fp32 `torch.matmul` (TF32 off), then top-k.  This is the product the
   JAX package leaves to XLA outside any Pallas kernel.
@@ -138,3 +140,29 @@ def brute_knn(ref: torch.Tensor, query: torch.Tensor, k: int,
         val, idx[s:s + block] = torch.topk(d, k, dim=1, largest=False, sorted=True)
         dist[s:s + block] = val.clamp_min(0.0).sqrt()
     return dist, idx
+
+
+def knn_smooth_features_exact(points, features, k: int = 20) -> np.ndarray:
+    """`knn_smooth_features` over the exact kNN graph (`iggt/utils/misc.py:24-78`):
+    the true k nearest in the whole cloud, self excluded, from the native
+    KD-tree (host).  points (..., 3), features (..., F), numpy or tensors;
+    returns numpy float32 of the features' shape."""
+    from iggt_official_tpu_torch import native
+
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    shape = features.shape
+    pts = host(points).astype(np.float32).reshape(-1, 3)
+    fts = host(features).astype(np.float32).reshape(-1, shape[-1])
+    M = pts.shape[0]
+    kq = min(k + 1, M)                 # one more, for the self column dropped below
+    _, idx = native.knn_query(pts, kq)
+    rows = np.arange(M)
+    # drop one column per row: the first that is the row itself, else column 0
+    is_self = idx == rows[:, None]
+    first_self = np.where(is_self.any(1), is_self.argmax(1), 0)
+    keep = np.ones((M, kq), bool)
+    keep[rows, first_self] = False
+    nbr = idx[keep].reshape(M, kq - 1)[:, :k]
+    return fts[nbr].mean(axis=1).reshape(tuple(shape)).astype(np.float32)

@@ -5,9 +5,9 @@ Holds every learned component under the reference checkpoint's names (image
 encoder, prompt encoder, mask decoder with its high-res projections, memory
 attention, memory encoder, the no-memory / no-object / temporal embeddings)
 and the model's steps: `forward_image`, `forward_sam_heads` (the image
-path), and `condition_on_memory`, `propagate_step`, `encode_new_memory`
-(the video path's steps, held to the JAX package on the CPU; the video
-predictor that drives them is not ported yet).
+path), and `no_memory_features`, `memory_tpos`, `downsample_mask_input`,
+`condition_on_memory`, `propagate_step`, `encode_new_memory` (the video
+path's steps, which `video_predictor.SAM2VideoPredictor` drives).
 
 Token layout (B, N, C), maps NHWC (the reference is sequence-first).  Mask
 logits are resized by align-corners bilinear interpolation, as the JAX
@@ -151,6 +151,18 @@ class SAM2Base(nn.Module):
         the valid tokens of a memory bank padded to a fixed shape."""
         return self.memory_attention(curr_feats, memory, curr_pos, memory_pos,
                                      num_obj_ptr_tokens=num_obj_ptr_tokens, key_mask=key_mask)
+
+    def no_memory_features(self, curr_feats: torch.Tensor) -> torch.Tensor:
+        """Initial-frame path (`sam2_base.py:652-658`, directly_add_no_mem_embed)."""
+        return curr_feats + self.no_mem_embed
+
+    def memory_tpos(self, t_pos_rel: torch.Tensor) -> torch.Tensor:
+        """maskmem temporal embedding rows (n, mem_dim) for relative positions."""
+        return self.maskmem_tpos_enc[t_pos_rel][:, 0, 0]
+
+    def downsample_mask_input(self, mask: torch.Tensor) -> torch.Tensor:
+        """Stride-4 learned downsample of NHWC mask prompts (`sam2_base.py:104`)."""
+        return self.mask_downsample(mask)
 
     def obj_ptr_tpos(self, pos_norm: torch.Tensor) -> torch.Tensor:
         """Temporal sine embedding of object pointers (`sam2_base.py:622-631`)."""

@@ -34,6 +34,7 @@ from iggt_official_tpu_torch.sam2.base import SAM2Base
 from iggt_official_tpu_torch.sam2.common import LayerNorm2d
 from iggt_official_tpu_torch.sam2.config import SAM2Config
 from iggt_official_tpu_torch.sam2.image_predictor import SAM2ImagePredictor
+from iggt_official_tpu_torch.sam2.video_predictor import SAM2VideoPredictor
 from iggt_official_tpu_torch.utils.device import resolve_device
 from iggt_official_tpu_torch.utils.init import _lecun_normal_
 
@@ -100,3 +101,10 @@ def build_sam2_image_predictor(cfg: Optional[SAM2Config] = None,
                                device: Optional[Union[str, torch.device]] = None,
                                seed: int = 0, **kw) -> SAM2ImagePredictor:
     return SAM2ImagePredictor(build_sam2(cfg, checkpoint, device, seed), **kw)
+
+
+def build_sam2_video_predictor(cfg: Optional[SAM2Config] = None,
+                               checkpoint: Optional[str] = None,
+                               device: Optional[Union[str, torch.device]] = None,
+                               seed: int = 0, **kw) -> SAM2VideoPredictor:
+    return SAM2VideoPredictor(build_sam2(cfg, checkpoint, device, seed), **kw)

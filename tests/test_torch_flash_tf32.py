@@ -142,6 +142,20 @@ def test_three_tf32_passes_hold_the_fp32_limit(shape, bias, prep):
     assert err <= FP32_ABS, err
 
 
+# SAM2's Hiera head dims (fp32 flash only, no q/k prep): B+ 56, L 72, T and S 96
+HIERA_CASES = [(2, 149, 2, 56), (1, 200, 2, 72), (2, 133, 1, 96)]
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no bias", "bias"])
+@pytest.mark.parametrize("shape", HIERA_CASES, ids=["D56", "D72", "D96"])
+def test_three_tf32_passes_hold_the_fp32_limit_at_hiera_head_dims(shape, bias):
+    q, k, v, kb = _inputs(*shape, seed=sum(shape), bias=bias, prep=False)
+    ref = fa.flash_attention_plain(q, k, v, kb)
+    err = (emulate(q, k, v, kb) - ref).abs().max().item()
+    assert err <= FP32_ABS, err
+    assert shape[-1] in fa.FP32_HEAD_DIMS
+
+
 @pytest.mark.parametrize("fault", ["one TF32 pass", "V^T without the key permutation"])
 def test_planted_faults_exceed_the_limit(fault):
     q, k, v, kb = _inputs(1, 149, 2, 64, seed=3, bias=True, prep=True)

@@ -120,6 +120,21 @@ def test_swin_ca_reference_q_partition_matches_jax():
     _compare(ref, out)
 
 
+def test_swin_ca_hat_q_partition_matches_jax():
+    """q_window_mode="hat": row-major query windows, 20 x 28 edge-padded."""
+    kw = dict(embed_dim=32, out_chans=32, num_heads=4, window_size=8)
+    mod, params = _port(SwinCA(**kw, q_window_mode="hat"), 9)
+    rng = np.random.default_rng(10)
+    x, k, v = (rng.standard_normal((2, 20, 28, 32)).astype(np.float32) for _ in range(3))
+    ref = jit(JSwinCA(**kw, q_window_mode="hat").apply)(
+        params, *(jnp.asarray(a) for a in (x, k, v)))
+    with torch.inference_mode():
+        out = mod(*(torch.from_numpy(a) for a in (x, k, v)))
+    _compare(ref, out)
+    with pytest.raises(ValueError, match="q_window_mode"):
+        SwinCA(**kw, q_window_mode="shifted")
+
+
 def test_part_head_matches_jax():
     """Cross-attention at level 1x (head dim 32, the flash path), the window
     cross-attention at 4x, the window self-attention, the unused
@@ -140,4 +155,25 @@ def test_part_head_matches_jax():
         out = head([torch.from_numpy(a) for a in proj], [torch.from_numpy(a) for a in pts],
                    HW, (1, 2))
     assert tuple(out.shape) == (1, 2, *HW, 8)
+    _compare(ref, out)
+
+
+def test_part_head_hat_matches_jax():
+    """The part head with `PartHeadConfig(q_window_mode="hat")` in both
+    packages, at the same tolerance as the reference mode."""
+    kw = dict(dim_in=128, features=64, out_channels=(64, 64, 64, 64), ca_num_heads=2,
+              intermediate_layer_idx=(0, 1, 2, 3), q_window_mode="hat")
+    head, params = _port(PartHead(PartHeadConfig(**kw)), 13)
+    assert head.window_cross_attention.atten_block.q_window_mode == "hat"
+    rng = np.random.default_rng(14)
+    proj = [rng.standard_normal((2, h, w, 64)).astype(np.float32)
+            for h, w in [(16, 20), (8, 10), (4, 5), (2, 3)]]
+    pts = [rng.standard_normal((2, h, w, 64)).astype(np.float32)
+           for h, w in [(16, 20), (8, 10), (4, 5)]]
+    jhead = JPartHead(JPartCfg(**kw), images_hw=HW, batch_dims=(1, 2))
+    ref = jit(jhead.apply)(params, [jnp.asarray(a) for a in proj],
+                           [jnp.asarray(a) for a in pts])
+    with torch.inference_mode():
+        out = head([torch.from_numpy(a) for a in proj], [torch.from_numpy(a) for a in pts],
+                   HW, (1, 2))
     _compare(ref, out)

@@ -608,3 +608,70 @@ def test_head_dim_72_is_fp32_flash_only(cuda_device):
         fa.flash_attention_fused(q, k, v, qk_norm_params=norm)
     with pytest.raises(ValueError, match="head dim"):
         fa.qk_prep(q, k, qk_norm_params=norm)
+
+
+# Hiera-B+ (D = 56) and Hiera-T / -S (D = 96) shapes: windows of 8, 4, 14 and
+# 7 (64, 16, 196 and 49 keys), pooled queries at the stage boundaries, the
+# global blocks, and ragged lengths around the 64-key and 128-query tiles
+HIERA_PRESET_RAGGED = [(64, 16, 64), (64, 4, 16), (32, 16, 16), (25, 196, 196), (25, 49, 196),
+                       (25, 49, 49), (1, 1024, 4096), (3, 1, 1), (2, 65, 129), (2, 129, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [56, 96])
+@pytest.mark.parametrize("windows,nq,nk", HIERA_PRESET_RAGGED)
+def test_fp32_flash_kernel_head_dims_56_96(cuda_device, D, windows, nq, nk):
+    """D = 56 (two panels, the second zero-filled past column 56) and D = 96
+    (three whole panels) at Hiera's window and q-pool shapes: q a new
+    contiguous tensor, k and v strided views of one packed qkv, with and
+    without a key bias.  The scale is D^-1/2, not that of the padded width."""
+    q = _qkv(cuda_device, torch.float32, B=windows, N=nq, H=2, D=D, seed=15)[0].contiguous()
+    _, k, v, bias, _ = _qkv(cuda_device, torch.float32, B=windows, N=nk, H=2, D=D, seed=16)
+    assert not k.is_contiguous()
+    _assert_close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v))
+    _assert_close(fa.flash_attention(q, k, v, bias), fa.flash_attention_plain(q, k, v, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [56, 96])
+def test_head_dims_56_96_are_fp32_flash_only(cuda_device, D):
+    """Strided views of a packed qkv give the bits of contiguous copies, and
+    bf16, the fused route and the q/k prep refuse D = 56 and 96."""
+    q, k, v, _, norm = _qkv(cuda_device, torch.float32, B=3, N=200, H=2, D=D, seed=17)
+    out = fa.flash_attention(q, k, v)
+    assert torch.equal(out, fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous()))
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fused(q, k, v, qk_norm_params=norm)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.qk_prep(q, k, qk_norm_params=norm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factory", ["sam2_hiera_t", "sam2_hiera_b_plus"])
+def test_hiera_presets_set_image_on_the_card(cuda_device, factory):
+    """`set_image` of Hiera-T (head dim 96) and Hiera-B+ (56) at 256 px runs
+    every attention through the fp32 flash kernel (the wrapper once per
+    block), and its backbone features match the same weights on the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from iggt_official_tpu_torch.sam2 import config as sam2_config
+    from iggt_official_tpu_torch.sam2.build import build_sam2_image_predictor
+
+    cfg = dataclasses.replace(getattr(sam2_config, factory)(), image_size=256,
+                              memory_attention_feat_sizes=(16, 16))
+    card = build_sam2_image_predictor(cfg, device=cuda_device, seed=3)
+    cpu = build_sam2_image_predictor(cfg, device="cpu", seed=3)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    image = np.random.default_rng(3).integers(0, 256, (200, 240, 3), dtype=np.uint8)
+    before = fa.flash_attention.launches
+    card.set_image(image)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - before == sum(cfg.hiera.stages)
+    cpu.set_image(image)
+    for got, want in zip(card._features["backbone_fpn"], cpu._features["backbone_fpn"]):
+        err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+        assert err <= 1e-3, err

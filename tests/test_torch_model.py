@@ -209,14 +209,32 @@ def _python_sources():
     yield op.join(REPO, "chip_smoke.py")
 
 
+# The only imports of sklearn, matplotlib and cv2 the port may hold: each
+# inside the one function whose option needs it, as in the JAX package
+# (MP4 decoding, per-view k-means, the trajectory plot), so no path the
+# card machine runs imports them.
+LAZY_IMPORTS = {("sam2/video_io.py", "decode_video_frames", "cv2"),
+                ("ops/cluster.py", "cluster_features_to_masks", "sklearn"),
+                ("eval/trajectory.py", "plot_trajectory", "matplotlib")}
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
-    # nor sklearn, matplotlib or cv2, which the card machine does not have
+    # nor sklearn, matplotlib or cv2, which the card machine does not have,
+    # outside LAZY_IMPORTS
     banned = ("jax", "jaxlib", "flax", "iggt_official_tpu", "sklearn", "matplotlib", "cv2")
+    pkg = op.join(REPO, "iggt_official_tpu_torch")
     sources = list(_python_sources())
     assert len(sources) > 20
+    lazy_seen = set()
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
+        rel = op.relpath(path, pkg).replace(os.sep, "/")
+        owner = {}
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for node in ast.walk(fn):
+                    owner.setdefault(node, fn.name)
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -225,4 +243,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in banned, f"{path} imports {name}"
+                root = name.split(".")[0]
+                if (rel, owner.get(node), root) in LAZY_IMPORTS:
+                    lazy_seen.add((rel, owner[node], root))
+                    continue
+                assert root not in banned, f"{path} imports {name}"
+    assert lazy_seen == LAZY_IMPORTS
