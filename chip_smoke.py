@@ -141,6 +141,41 @@ order; any failure exits non-zero:
    summary.json, and the gate passing against the serial outputs as
    goldens and failing against a golden depth scaled by 1.02.
 
+10. train: the training path.  The trunk and the DINOv2 blocks train
+   through plain attention, as the JAX step trains through XLA; the part
+   head's cross-attention, which the JAX step leaves on its dispatcher (on a
+   TPU the Pallas flash kernel at the cell's 1,036 tokens), runs the flash
+   kernel's forward through `attention_train`, with the plain version's
+   backward.  (a) each kernel wrapper raises on CUDA inputs that require
+   grad; `attention_train` at the cell's part-head shape launches the
+   kernel once, within the fp32 limit of the plain version, with the plain
+   version's gradients (1e-6 relative); (b) one `make_train_step` of a
+   scaled IGGT (DINOv2 patch embed, all four losses) on the card and on the
+   CPU, same weights and batch, fp32 and bf16 trunks, TF32 off: loss terms
+   and grad_norm (`TRAIN_LOSS_TOL`; bf16: or the bf16 trunk's own move of
+   the term on the CPU), every gradient per tensor and in global L2
+   (`TRAIN_GRAD_TOL`, `TRAIN_GRAD_L2`, `TRAIN_TENSOR_L2`), one
+   flash launch per part-head view chunk and no other; for each trunk the
+   planted fault -- the trunk's attention output detached, which the
+   kernels' missing `grad_fn` did -- must fail the check and name the
+   trunk's qkv weights; (c) the full-width cell through
+   `app/train.py::main`, under torch's default TF32 settings (what the CLI
+   runs: cuDNN convolutions in TF32): a synthetic Dl3dv sequence (24 frames
+   640x480, masklets as COCO RLE of a Voronoi partition), B = 1 x S = 4
+   views at 518x392, 8 steps with layer decay 0.9 and 2 warmup steps, one
+   checkpoint at the end (the free disk checked first), then a resume to
+   step 10; it prints each step's losses, grad_norm, lr, wall and loader
+   wait, the median step, images/s, the loader's share, peak memory beside
+   the reckoning, the launch counts (flash_attention one per step, the
+   others 0), one profiled step's device time by bucket (attention einsum
+   and softmax, convolution, matmul, optimizer, the rest) with the largest
+   ops and kernels; it checks finite losses, finite gradients (nonzero
+   except where (b) read zero on the CPU: `cross_attention_1`, computed
+   and discarded), the checkpoint reloaded byte-equal, the resume's first
+   step and learning rate, and a separate 10-step run on one fixed batch
+   whose loss must fall.  The kernels phase holds the flash kernel at the
+   cell's part-head shape (4, 1036, 8, 32) fp32.
+
 The kernels phase also holds token merging's two launches at the merged
 8x518 global block: the q/k prep kernel alone (1, 10992, 16, 64) against
 `qk_prep_plain` (bf16 within 1 ulp, fp32 within 1e-5; faults: the RoPE
@@ -332,6 +367,9 @@ KERNEL_CASES = (
     ("global block, 3 views 504x336", "flash_attention", (1, 2607, 16, 64), "bfloat16", None),
     ("frame/DINOv2 block, 3 views 504x336", "flash_attention", (3, 869, 16, 64), "bfloat16", None),
     ("part cross-attention, 3 views 504x336", "flash_attention", (3, 864, 8, 32), "float32", None),
+    # the training cell's part head (attention_train's forward), 1 x 4 views 518x392
+    ("part cross-attention, train cell, 4 views 518x392", "flash_attention", (4, 1036, 8, 32),
+     "float32", None),
     ("frame block q/k prep, 3 views 504x336", "flash_attention_fused", (3, 869, 16, 64), "bfloat16",
      None),
     ("key_bias", "flash_attention", (2, 1374, 16, 64), "bfloat16", "random"),
@@ -1346,6 +1384,12 @@ def kernels_summary(results, launches, extra):
         })
         if kernel.startswith("flash_attention_hiera"):
             out[-1]["wrapper"] = "flash_attention"
+        if kernel == "flash_attention" and "flash_attention_train" in launches:
+            out[-1]["launches_train"] = launches["flash_attention_train"]
+            out[-1]["launches_train_from"] = (
+                f"the training cell's {TRAIN_STEPS} steps (app/train.py, 1 x 4 views 518x392): "
+                "the part head's cross-attention through attention_train, the kernel's "
+                "forward with the plain version's backward")
         if kernel == "flash_attention_hiera" and "flash_attention_hiera_video" in launches:
             out[-1]["launches_sam2_video"] = launches["flash_attention_hiera_video"]
         if kernel in ("nn1", "bucket_topk"):
@@ -3216,6 +3260,520 @@ def run_batch_eval(proc, tmp: str, launches_out: dict) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 10: train
+
+TRAIN_SCALED = dict(embed_dim=64, depth=2, num_heads=2, vit_depth=1, img_size=56,
+                    patch_embed="dinov2_vitl14_reg")
+TRAIN_SCALED_SHAPE = (1, 2, 56, 70)           # B, S, H, W of the card-vs-CPU step
+# card vs CPU, per tensor: max |err| <= tol * max(max|g|, floor * G), G the
+# largest |g| of the CPU's step, and the global relative L2 error of all the
+# gradients; the loss terms and grad_norm relative.  Readings on an NVIDIA
+# H100 80GB HBM3 at 700 W: fp32 worst 6.8e-3 of max|g| (six depth-head
+# tensors: cuDNN's fp32 convolutions sum in another order, TF32 off), global
+# L2 2.1e-6, losses 5.7e-7; bf16 worst 1.5e-2, global L2 1.8e-2, losses
+# 3.2e-3 (the camera term: the card's and the CPU's bf16 matmuls round
+# differently).  The bf16 loss terms are held to 1e-3, or where the bf16
+# trunk itself moves a term by more (its CPU step against the fp32 trunk's,
+# same weights and batch: the camera term 5.0e-3, the total 2.8e-3,
+# grad_norm 3.4e-3), to that move: the two devices' bf16 roundings may not
+# differ by more than bf16 rounding moves the loss.
+TRAIN_GRAD_TOL = {"float32": (2e-2, 1e-5), "bfloat16": (0.1, 1e-3)}
+TRAIN_GRAD_L2 = {"float32": 1e-4, "bfloat16": 0.05}
+# each tensor whose max|g| is above 1e-5 G: relative L2 error.  bf16: the
+# CPU test's limit against the JAX package, where it reads up to 0.111 (the
+# card against the CPU: 1.9e-2); fp32: 30x the card's reading of 3.3e-4.  A
+# zeroed tensor reads 1, a halved one 0.5.
+TRAIN_TENSOR_L2 = {"float32": 1e-2, "bfloat16": 0.25}
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_FRAMES, TRAIN_FRAME_SIZE = 24, (640, 480)   # the loaders' min_frames, (W, H)
+TRAIN_RESOLUTION = (518, 392)
+TRAIN_STEPS, TRAIN_RESUME_STEPS, TRAIN_CURVE_STEPS, TRAIN_WARMUP = 8, 10, 10, 2
+TRAIN_PROFILE_STEP = 4
+# the part head's cross-attention in the cell: B*S, the 28 x 37 patch grid, heads, head dim
+TRAIN_PART_ATTENTION = (4, (TRAIN_RESOLUTION[1] // 14) * (TRAIN_RESOLUTION[0] // 14), 8, 32)
+CKPT_BYTES_PER_PARAM = 12                      # fp32 weights and both moments
+FULL_PARAMS = 1.216e9                          # ModelConfig()'s IGGT
+TRAIN_BUCKETS = (("attention einsum (bmm)", ("aten::bmm",)),
+                 ("attention softmax", ("softmax",)),
+                 ("convolution", ("conv", "cudnn")),
+                 ("matmul (linear layers)", ("aten::mm", "aten::addmm", "aten::linear")),
+                 ("optimizer (foreach)", ("_foreach",)))
+
+
+def check_train_guard() -> bool:
+    """Each kernel wrapper, given CUDA inputs that require grad with grad mode
+    on, raises (and launches nothing)."""
+    import torch
+
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+    from iggt_official_tpu_torch.ops.fused_ln import fused_layernorm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn(1, 128, 16, 64, device="cuda", dtype=torch.bfloat16, generator=gen)
+               for _ in range(3))
+    cos = torch.ones(1, 128, 64, device="cuda")
+    norm = tuple(torch.ones(64, device="cuda") for _ in range(4))
+    x = torch.randn(128, 1024, device="cuda", dtype=torch.bfloat16, generator=gen)
+    w, b = torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda")
+    calls = {"flash_attention": lambda q: fa.flash_attention(q, k, v),
+             "flash_attention_fused": lambda q: fa.flash_attention_fused(q, k, v, cos, cos, norm),
+             "qk_prep": lambda q: fa.qk_prep(q, k, cos, cos, norm),
+             "fused_layernorm": lambda x: fused_layernorm(x, w, b)}
+    ok = True
+    zero_counts()
+    for name, fn in calls.items():
+        arg = (x if name == "fused_layernorm" else q).clone().requires_grad_(True)
+        try:
+            fn(arg)
+            log(f"[train] guard FAIL: {name} accepted a CUDA input that requires grad")
+            ok = False
+        except ValueError as exc:
+            log(f"[train] guard ok: {name} raised: {str(exc)[:96]}...")
+    launched = read_counts()
+    if any(launched.values()):
+        log(f"[train] guard FAIL: launches {launched}")
+        ok = False
+    return ok & check_attention_train()
+
+
+def check_attention_train() -> bool:
+    """`attention_train` at the training cell's part-head shape, on inputs
+    that require grad: one flash launch, the value within the fp32 kernel
+    limit of the plain version's, and the gradient of q, k and v equal to the
+    plain version's autograd (its backward recomputes that version)."""
+    import torch
+
+    from iggt_official_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    shape = TRAIN_PART_ATTENTION
+    qkv = [torch.randn(shape, device="cuda", generator=gen) for _ in range(3)]
+    g = torch.randn(shape, device="cuda", generator=gen)
+    ours = [t.clone().requires_grad_(True) for t in qkv]
+    ref = [t.clone().requires_grad_(True) for t in qkv]
+    zero_counts()
+    out = fa.attention_train(*ours)
+    launched = read_counts()
+    want = fa.flash_attention_plain(*ref)
+    ref_max = want.abs().max().item()
+    err = (out - want).abs().max().item()
+    limit = error_limit("float32", ref_max)
+    out.backward(g)
+    want.backward(g)
+    gerr = max(((a.grad - b.grad).abs().max() / b.grad.abs().max()).item()
+               for a, b in zip(ours, ref))
+    ok = (launched["flash_attention"] == 1 and sum(launched.values()) == 1
+          and err <= limit and gerr <= 1e-6)
+    log(f"[train] attention_train {tuple(shape)} fp32, inputs requiring grad: "
+        f"{'ok' if ok else 'FAIL'}: launches {launched}; value max_abs_err {err:.3e} "
+        f"(limit {limit:.3e}); q/k/v gradients against the plain version's autograd, max "
+        f"rel {gerr:.3e} (limit 1e-6)")
+    return ok
+
+
+def train_batch(seed: int, shape) -> dict:
+    """A seeded batch with all four losses' targets (numpy)."""
+    B, S, H, W = shape
+    rng = np.random.default_rng(seed)
+    return {"images": rng.uniform(0, 1, (B, S, H, W, 3)).astype(np.float32),
+            "pose_enc": rng.normal(0, 1, (B, S, 9)).astype(np.float32),
+            "depth": rng.uniform(0.5, 2, (B, S, H, W, 1)).astype(np.float32),
+            "world_points": rng.normal(0, 1, (B, S, H, W, 3)).astype(np.float32),
+            "valid_mask": (rng.random((B, S, H, W)) < 0.8).astype(np.float32),
+            "instance_ids": rng.integers(-1, 4, (B, S, H, W)).astype(np.int32)}
+
+
+def one_train_step(model, batch: dict, device: str, attn_fn=None):
+    """``make_train_step`` once on ``model`` (a copy on ``device``): (metrics,
+    {name: gradient on the CPU, zeros for None})."""
+    import copy
+
+    import torch
+
+    from iggt_official_tpu_torch.layers.blocks import sdpa_plain
+    from iggt_official_tpu_torch.train.loop import to_device
+    from iggt_official_tpu_torch.train.step import make_optimizer, make_train_step
+
+    m = copy.deepcopy(model).to(device)
+    opt = make_optimizer(m, layer_decay=0.9, num_layers=TRAIN_SCALED["depth"])
+    _, metrics = make_train_step(m, opt, attn_fn=attn_fn or sdpa_plain)(
+        to_device(batch, torch.device(device)))
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().float().cpu()
+             for n, p in m.named_parameters()}
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def grad_problems(ref: dict, out: dict, trunk: str):
+    """Tensors of ``out`` outside the card-vs-CPU limits against ``ref``:
+    (failing names, worst error as a share of its limit, global relative L2)."""
+    import torch
+
+    tol, floor = TRAIN_GRAD_TOL[trunk]
+    G = max(g.abs().max().item() for g in ref.values())
+    bad, worst = [], 0.0
+    for n, r in ref.items():
+        limit = max(r.abs().max().item(), floor * G)
+        err = (out[n] - r).abs().max().item()
+        worst = max(worst, err / limit / tol)
+        if err > tol * limit:
+            bad.append(n)
+    r = torch.cat([g.double().flatten() for g in ref.values()])
+    o = torch.cat([out[n].double().flatten() for n in ref])
+    l2 = ((o - r).norm() / r.norm()).item()
+    if l2 > TRAIN_GRAD_L2[trunk]:
+        bad.append(f"global relative L2 {l2:.3e} > {TRAIN_GRAD_L2[trunk]}")
+    # each tensor's relative L2 error where max|g| is above 1e-5 G (the
+    # max-abs limit passes a zeroed or halved tensor below its floor)
+    tensor_l2 = 0.0
+    for n, r in ref.items():
+        if r.abs().max().item() > 1e-5 * G:
+            e = ((out[n].double() - r).norm() / r.double().norm()).item()
+            tensor_l2 = max(tensor_l2, e)
+            if e > TRAIN_TENSOR_L2[trunk] and n not in bad:
+                bad.append(n)
+    return bad, worst, l2, tensor_l2
+
+
+def name_pattern(name: str) -> str:
+    import re
+
+    return re.sub(r"\.\d+\.", ".N.", name)
+
+
+def check_train_agreement():
+    """One training step of a scaled IGGT (DINOv2 patch embed) on the card and
+    on the CPU, same weights and batch, fp32 and bf16 trunks: loss terms
+    within TRAIN_LOSS_TOL (bf16: or the bf16 trunk's own move of the term on
+    the CPU), every gradient within TRAIN_GRAD_TOL and TRAIN_GRAD_L2, and the
+    flash kernel launched once per part-head view chunk (`attention_train`),
+    nothing else; then, for each trunk, the planted fault, the trunk's
+    attention output detached (what the kernels' missing grad_fn did), must
+    fail the gradient check and name the qkv weights.  Returns (ok, name
+    patterns whose CPU gradient is zero)."""
+    import dataclasses
+
+    from iggt_official_tpu_torch.config import ModelConfig
+    from iggt_official_tpu_torch.layers.blocks import sdpa_plain
+    from iggt_official_tpu_torch.models.vggt import _view_chunks, build_model
+    import torch
+
+    def detached(q, k, v):
+        return sdpa_plain(q, k, v).detach()
+
+    log(f"[train] card vs CPU: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} in this check "
+        "(torch's default, which the training CLI keeps, runs the card's convolutions in TF32)")
+    ok, zero, cpu = True, set(), {}
+    batch = train_batch(SEED + 20, TRAIN_SCALED_SHAPE)
+    for trunk in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(ModelConfig().scaled(**TRAIN_SCALED), trunk_dtype=trunk)
+        chunks = len(_view_chunks(TRAIN_SCALED_SHAPE[1], cfg.part.frames_chunk_size))
+        want = {k: (chunks if k == "flash_attention" else 0) for k in read_counts()}
+        model = build_model(cfg, device="cpu", seed=SEED, train=True)
+        t0 = time.perf_counter()
+        ref_m, ref_g = one_train_step(model, batch, "cpu")
+        cpu[trunk] = ref_m
+        t1 = time.perf_counter()
+        zero_counts()
+        out_m, out_g = one_train_step(model, batch, "cuda")
+        launched = read_counts()
+        if trunk == "float32":
+            limits = {k: TRAIN_LOSS_TOL for k in ref_m}
+        else:   # the bf16 trunk's own move of each term on the CPU
+            limits = {k: max(TRAIN_LOSS_TOL, abs(v - cpu["float32"][k]) / abs(cpu["float32"][k]))
+                      for k, v in ref_m.items()}
+        loss_errs = {k: abs(out_m[k] - ref_m[k]) / max(abs(ref_m[k]), 1e-12) for k in ref_m}
+        loss_bad = [k for k in ref_m if loss_errs[k] > limits[k]]
+        bad, worst, l2, tensor_l2 = grad_problems(ref_g, out_g, trunk)
+        good = not loss_bad and not bad and launched == want
+        ok &= good
+        log(f"[train] {trunk} trunk, card vs CPU: {'ok' if good else 'FAIL'}: loss terms and "
+            f"grad_norm, rel err (limit): "
+            + ", ".join(f"{k} {loss_errs[k]:.3e} ({limits[k]:.2e})" for k in ref_m)
+            + f"; gradients: worst {worst:.4f} of the per-tensor limit (tol, floor "
+            f"{TRAIN_GRAD_TOL[trunk]}), global rel L2 {l2:.3e} (limit "
+            f"{TRAIN_GRAD_L2[trunk]:.0e}), worst per-tensor rel L2 {tensor_l2:.3e} (limit "
+            f"{TRAIN_TENSOR_L2[trunk]}), "
+            f"{len(bad)} outside; kernel launches {launched} (want {want}); CPU step "
+            f"{t1 - t0:.1f} s, card step {time.perf_counter() - t1:.1f} s")
+        log(f"[train]   CPU {json.dumps({k: round(v, 6) for k, v in ref_m.items()})}")
+        log(f"[train]   card {json.dumps({k: round(v, 6) for k, v in out_m.items()})}")
+        for n in bad[:8]:
+            log(f"[train]   outside: {n}")
+        if trunk == "float32":
+            zero = {name_pattern(n) for n, g in ref_g.items() if not g.any()}
+            log(f"[train]   zero gradient on the CPU: {sorted(zero)}")
+        _, fault_g = one_train_step(model, batch, "cuda", attn_fn=detached)
+        fbad, fworst, fl2, ftensor_l2 = grad_problems(ref_g, fault_g, trunk)
+        qkv = [n for n in fbad if n.startswith("aggregator.") and ".attn.qkv." in n]
+        caught = bool(qkv)
+        ok &= caught
+        log(f"[train] {trunk} trunk, planted fault (trunk attention output detached): "
+            f"{'caught' if caught else 'NOT CAUGHT'}: {len(fbad)} tensors outside, "
+            f"{len(qkv)} of them qkv weights of the trunk, e.g. {qkv[:3]}; worst "
+            f"{fworst:.1f} of the per-tensor limit, global rel L2 {fl2:.3e}, worst "
+            f"per-tensor rel L2 {ftensor_l2:.3e}")
+        del model
+    return ok, zero
+
+
+def write_train_sequence(root: str, seed: int = SEED) -> str:
+    """A Dl3dv-layout sequence of TRAIN_FRAMES seeded frames under
+    ``root/scans/seq0/``: dense/rgb PNGs (smooth colour fields plus noise),
+    dense/depth npy (a smooth surface at 1.5-4.5 m), dense/cam npz (a camera
+    sliding along x and turning about y, pinhole intrinsics) and
+    auto_masks.json, per frame the COCO RLE (the port's `data/rle.py`) of a
+    seeded Voronoi partition's even cells."""
+    from PIL import Image
+
+    from iggt_official_tpu_torch.data import rle
+
+    W, H = TRAIN_FRAME_SIZE
+    rng = np.random.default_rng(seed)
+    seq = os.path.join(root, "scans", "seq0", "dense")
+    for sub in ("rgb", "depth", "cam"):
+        os.makedirs(os.path.join(seq, sub))
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    sites = rng.uniform(0, 1, (12, 2)).astype(np.float32)
+    masklets = []
+    for i in range(TRAIN_FRAMES):
+        coarse = rng.uniform(0, 255, (6, 8, 3)).astype(np.uint8)
+        img = np.asarray(Image.fromarray(coarse).resize((W, H), Image.BICUBIC), np.float32)
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(seq, "rgb", f"frame_{i:04d}.png"))
+        depth = (3.0 + np.sin(yy / H * 3 + 0.1 * i) + 0.5 * np.cos(xx / W * 4)).astype(np.float32)
+        np.save(os.path.join(seq, "depth", f"frame_{i:04d}.npy"), depth)
+        a = 0.02 * i
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        pose[:3, 3] = [0.05 * i, 0.0, 0.0]
+        K = np.array([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]], np.float32)
+        np.savez(os.path.join(seq, "cam", f"frame_{i:04d}.npz"), pose=pose, intrinsic=K)
+        s = sites + 0.01 * i
+        cell = np.argmin((yy[None] / H - s[:, :1, None]) ** 2
+                         + (xx[None] / W - s[:, 1:, None]) ** 2, axis=0)
+        masklets.append(rle.encode(cell % 2 == 0))
+    with open(os.path.join(root, "scans", "seq0", "auto_masks.json"), "w") as f:
+        json.dump({"masklet": masklets}, f)
+    return root
+
+
+def profile_buckets(events):
+    """Device time (ms) of a profiled step by bucket, from the self device
+    time of the CPU ops that launched the kernels; the sum over the kernels
+    themselves (the two totals should agree); and the rest bucket's largest
+    ops and the largest kernels, as (ms, count, name)."""
+    import torch
+
+    rest = "elementwise, reductions, copies (the rest)"
+    buckets = {name: 0.0 for name, _ in TRAIN_BUCKETS}
+    buckets[rest] = 0.0
+    kernels, rest_ops, top = 0.0, [], []
+    for e in events:
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if not us:
+            continue
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += us / 1e3
+            top.append((us / 1e3, e.count, e.key))
+            continue
+        name = next((n for n, pats in TRAIN_BUCKETS if any(p in e.key for p in pats)), rest)
+        buckets[name] += us / 1e3
+        if name == rest:
+            rest_ops.append((us / 1e3, e.count, e.key))
+    return buckets, kernels, sorted(rest_ops, reverse=True)[:8], sorted(top, reverse=True)[:8]
+
+
+def reckoned_memory_gb(n_params: int) -> dict:
+    """The training cell's memory reckoned from the shapes (not measured)."""
+    h, w = TRAIN_RESOLUTION[1] // 14, TRAIN_RESOLUTION[0] // 14
+    P, S, heads = h * w + 5, 4, 16
+    dino = 24 * S * heads * (h * w + 5) ** 2 * (4 + 2) / 1e9   # softmax out fp32 + probs bf16
+    recompute = heads * (S * P) ** 2 * (2 + 4 + 4 + 2) / 1e9   # one global block's logits
+    return {"params+grads+moments (16 B/param)": 16 * n_params / 1e9,
+            "DINOv2 attention saved for backward": dino,
+            "one global block's recompute": recompute,
+            "heads' activations (coarse)": 10.0}
+
+
+def run_train_cell(zero_patterns, launches_out: dict) -> bool:
+    """The full-width training cell through `app/train.py::main` (see the
+    module note, phase 10), under torch's default TF32 settings, which the
+    training CLI keeps (cuDNN convolutions in TF32, matmuls in fp32)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        return _run_train_cell(zero_patterns, launches_out)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _run_train_cell(zero_patterns, launches_out: dict) -> bool:
+    import gc
+    import itertools
+    import shutil
+    import statistics
+
+    import torch
+
+    from iggt_official_tpu_torch.app.train import main as train_main
+    from iggt_official_tpu_torch.config import ModelConfig
+    from iggt_official_tpu_torch.data.loader import get_data_loader
+    from iggt_official_tpu_torch.models.vggt import _view_chunks
+    from iggt_official_tpu_torch.train.loop import train
+    from iggt_official_tpu_torch.train.step import make_schedule
+    from iggt_official_tpu_torch.utils.checkpoint import load_training_checkpoint
+
+    ok = True
+    log(f"[train] cell under torch's defaults: cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    with tempfile.TemporaryDirectory(prefix="iggt_train_") as tmp:
+        root = write_train_sequence(os.path.join(tmp, "dl3dv"))
+        expr = f"Dl3dv({root!r}, resolution={TRAIN_RESOLUTION}, seed={SEED})"
+        ckpt = os.path.join(tmp, "ckpt")
+        free = shutil.disk_usage(tmp).free
+        need = 2 * CKPT_BYTES_PER_PARAM * FULL_PARAMS * 1.05
+        log(f"[train] free disk under {tmp}: {free / 1e9:.1f} GB; two checkpoints need "
+            f"~{need / 1e9:.1f} GB")
+        if free < need:
+            log("[train] FAIL: not enough free disk for the two checkpoints of the cell")
+            return False
+        common = ["--dataset", expr, "--batch_size", "4", "--seq_min_len", "4",
+                  "--seq_max_len", "4", "--warmup_steps", str(TRAIN_WARMUP),
+                  "--checkpoint_dir", ckpt, "--checkpoint_every", "1000", "--log_every", "1",
+                  "--device", "cuda", "--seed", str(SEED)]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        state = train_main(common + ["--steps", str(TRAIN_STEPS), "--profile_step",
+                                     str(TRAIN_PROFILE_STEP)])
+        run_s = time.perf_counter() - t0
+        launched = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in state.model.parameters())
+        hist = state.history
+        timed = [h for h in hist[1:] if h["step"] != TRAIN_PROFILE_STEP]
+        step_s = statistics.median(h["wall_s"] for h in timed)
+        wait = sum(h["data_s"] for h in timed) / sum(h["wall_s"] for h in timed)
+        reck = reckoned_memory_gb(n_params)
+        log(f"[train] cell: IGGT {n_params / 1e9:.3f} B parameters, 1 x 4 views at "
+            f"{TRAIN_RESOLUTION[0]}x{TRAIN_RESOLUTION[1]}, {TRAIN_STEPS} steps in {run_s:.1f} s "
+            "(model init, data, profiled step and checkpoint included)")
+        log(f"[train] step wall (median of steps 2-{TRAIN_STEPS} without the profiled one, "
+            f"after a device sync) {step_s:.3f} s = {4 / step_s:.2f} images/s; loader wait "
+            f"{100 * wait:.1f}% of those steps")
+        log(f"[train] peak memory (max_memory_allocated) {peak:.2f} GiB; reckoned "
+            f"{sum(reck.values()):.1f} GB: " + ", ".join(f"{k} {v:.1f}" for k, v in reck.items()))
+        for h in hist:
+            log("[train] step " + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                                              for k, v in h.items()}))
+        chunks = len(_view_chunks(4, ModelConfig().part.frames_chunk_size))
+        want = {k: (TRAIN_STEPS * chunks if k == "flash_attention" else 0) for k in launched}
+        launches_out["flash_attention_train"] = launched["flash_attention"]
+        log(f"[train] kernel launches over the {TRAIN_STEPS} steps: {launched} (want {want}: "
+            "the part head's cross-attention through attention_train, one launch per view "
+            "chunk and step; the trunk through plain attention)")
+        if launched != want:
+            log("[train] FAIL: the training steps' kernel launches differ")
+            ok = False
+        if not all(np.isfinite(v) for h in hist for k, v in h.items() if k.startswith("loss")):
+            log("[train] FAIL: a loss is not finite")
+            ok = False
+        nonfinite, zero = [], []
+        for n, p in state.model.named_parameters():
+            g = p.grad
+            if g is not None and not torch.isfinite(g).all():
+                nonfinite.append(n)
+            if (g is None or not g.any()) and name_pattern(n) not in zero_patterns:
+                zero.append(n)
+        log(f"[train] last step's gradients: {len(nonfinite)} non-finite, {len(zero)} zero "
+            f"outside the CPU's zero set {sorted(zero_patterns)}")
+        if nonfinite or zero:
+            log(f"[train] FAIL: gradients {nonfinite[:4]} {zero[:4]}")
+            ok = False
+        if state.profile is not None:
+            buckets, kernels, rest_ops, top = profile_buckets(state.profile)
+            total = sum(buckets.values())
+            log(f"[train] profiled step {TRAIN_PROFILE_STEP}: device time {total:.1f} ms by "
+                f"the ops that launched it ({kernels:.1f} ms summed over the kernels), "
+                f"{100 * total / 1e3 / step_s:.1f}% of the unprofiled step's wall; step wall "
+                f"{hist[TRAIN_PROFILE_STEP]['wall_s'] * 1e3:.1f} ms under the profiler")
+            for name, ms in sorted(buckets.items(), key=lambda kv: -kv[1]):
+                log(f"[train]   {name:44s} {ms:9.2f} ms  {100 * ms / max(total, 1e-9):5.1f}%")
+            for ms, count, key in rest_ops:
+                log(f"[train]   rest: {ms:9.2f} ms  x{count:<6d} {key[:100]}")
+            for ms, count, key in top:
+                log(f"[train]   top kernel: {ms:9.2f} ms  x{count:<6d} {key[:100]}")
+        for c in state.checkpoints:
+            log(f"[train] checkpoint {os.path.basename(c['path'])}: {c['bytes'] / 1e9:.2f} GB "
+                f"in {c['seconds']:.1f} s")
+        # the checkpoint reloads byte-equal
+        t0 = time.perf_counter()
+        saved = load_training_checkpoint(state.checkpoints[-1]["path"])
+        opt = state.optimizer.state_dict()
+        same = saved["step"] == TRAIN_STEPS and saved["optimizer"]["count"] == opt["count"]
+        for k, v in state.model.state_dict().items():
+            same &= torch.equal(saved["model"][k], v.cpu())
+        for part in ("mu", "nu"):
+            for k, v in opt[part].items():
+                same &= torch.equal(saved["optimizer"][part][k], v.cpu())
+        log(f"[train] checkpoint reload: {'byte-equal' if same else 'DIFFERS'} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        ok &= bool(same)
+        del saved, state, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # resume to step 10
+        state = train_main(common + ["--steps", str(TRAIN_RESUME_STEPS)])
+        first = state.history[0] if state.history else {}
+        want_lr = make_schedule(1e-4, TRAIN_WARMUP, TRAIN_RESUME_STEPS)(TRAIN_STEPS)
+        resumed = (first.get("step") == TRAIN_STEPS and first.get("lr") == want_lr
+                   and state.step == TRAIN_RESUME_STEPS)
+        log(f"[train] resume: {'ok' if resumed else 'FAIL'}: first step {first.get('step')} "
+            f"at lr {first.get('lr')} (schedule {want_lr}), finished at {state.step}; "
+            + "; ".join(f"checkpoint {os.path.basename(c['path'])} {c['seconds']:.1f} s"
+                        for c in state.checkpoints))
+        ok &= resumed
+        del state
+        shutil.rmtree(ckpt)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the loss falls on one fixed batch
+        batch = next(get_data_loader(expr, seq_min_len=4, seq_max_len=4, batch_size=4))
+        state = train(ModelConfig(), itertools.repeat(batch), TRAIN_CURVE_STEPS,
+                      init_batch=batch, device="cuda", warmup_steps=TRAIN_WARMUP,
+                      num_layers=24, log_every=10 ** 6, rng_seed=SEED)
+        curve = [h["loss/total"] for h in state.history]
+        falls = curve[-1] < curve[0]
+        log(f"[train] fixed-batch curve ({TRAIN_CURVE_STEPS} steps): "
+            f"{'falls' if falls else 'DOES NOT FALL'}: " + ", ".join(f"{v:.4f}" for v in curve))
+        ok &= falls
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok
+
+
+def run_train(launches_out: dict) -> bool:
+    ok = check_train_guard()
+    agree, zero = check_train_agreement()
+    ok &= agree
+    ok &= run_train_cell(zero, launches_out)
+    return ok
+
+
 def build_all() -> None:
     """nvcc for every kernel source and g++ for the native host library, all
     started together; prints each build's time and the ptxas report."""
@@ -3242,7 +3800,7 @@ def build_all() -> None:
 
 
 def main(phases=("device", "build", "kernels", "agreement", "postproc", "requests",
-                 "batch_eval", "sam2", "sam2_video")) -> int:
+                 "batch_eval", "sam2", "sam2_video", "train")) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -3296,6 +3854,8 @@ def main(phases=("device", "build", "kernels", "agreement", "postproc", "request
     if "sam2_video" in phases:
         ok &= check_video_agreement()
         ok &= run_sam2_video(launches)
+    if "train" in phases:
+        ok &= run_train(launches)
 
     summary = kernels_summary(results, launches, extra) if results else []
     log(json.dumps({"kernels": summary}))

@@ -15,7 +15,7 @@ is not computed: the reference computes it and discards the result.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -45,10 +45,11 @@ class PartHead(nn.Module):
 
     def forward(self, projector_features: Sequence[torch.Tensor],
                 point_features: Sequence[torch.Tensor], images_hw: Tuple[int, int],
-                batch_dims: Tuple[int, int]) -> torch.Tensor:
+                batch_dims: Tuple[int, int], attn_fn: Optional[Callable] = None) -> torch.Tensor:
         """projector_features: 4 NHWC maps (res1..res4), batch B*S;
-        point_features: (out2, out3, out4) NHWC, batch B*S.
-        Returns (B, S, H, W, output_dim)."""
+        point_features: (out2, out3, out4) NHWC, batch B*S.  ``attn_fn``
+        replaces the cross-attention's dispatcher for one call (the training
+        route).  Returns (B, S, H, W, output_dim)."""
         B, S = batch_dims
         H, W = images_hw
         p = self.cfg.patch_size
@@ -60,7 +61,8 @@ class PartHead(nn.Module):
             return x.reshape(x.shape[0], -1, x.shape[-1])
 
         out = sc.refinenet4(rn[3], size=rn[2].shape[1:3])
-        out = self.cross_attention_2(flat(out), flat(pt4), flat(pt4)).reshape(out.shape)
+        out = self.cross_attention_2(flat(out), flat(pt4), flat(pt4),
+                                     attn_fn=attn_fn).reshape(out.shape)
         out = sc.refinenet3(out, rn[2], size=rn[1].shape[1:3])
         out = sc.refinenet2(out, rn[1], size=rn[0].shape[1:3])
         out = self.window_cross_attention(out, pt2, pt2)

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from iggt_official_tpu_torch.layers.rope import Rope2DTables, pack_rope_tables
+from iggt_official_tpu_torch.layers.rope import Rope2DTables, apply_rope_2d, pack_rope_tables
 from iggt_official_tpu_torch.ops.fused_ln import fused_layernorm
 
 
@@ -91,7 +91,9 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     """Matmul-softmax attention over (B, N, H, D), softmax in fp32.
 
     Mirrors `sdpa_xla`, which the JAX package computes outside any Pallas
-    kernel (the camera head's blocks attend over S tokens)."""
+    kernel (the camera head's blocks attend over S tokens, and the training
+    step attends through it everywhere: it is differentiable, the kernels
+    are not)."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
@@ -128,12 +130,16 @@ class LayerScale(nn.Module):
 class Attention(nn.Module):
     """MHA with optional qk-norm (LayerNorm over head_dim) and 2D RoPE.
 
-    With qk-norm or RoPE, raw q/k go to ``attn_fn`` with the packed RoPE
-    tables and the norm params, and the prep (fp32 LN + RoPE, one rounding)
-    happens there -- inside the fused kernel on the card.  Such an
-    ``attn_fn`` must set ``supports_fused_qk_prep``; there is no prep here.
+    With qk-norm or RoPE and an ``attn_fn`` that sets
+    ``supports_fused_qk_prep``, raw q/k go to ``attn_fn`` with the packed
+    RoPE tables and the norm params, and the prep (fp32 LN + RoPE, one
+    rounding) happens there -- inside the fused kernel on the card.  Any
+    other ``attn_fn`` (`sdpa_plain`, as the training step passes) takes the
+    unfused branch of the JAX package: the fp32 LN cast to the compute dtype,
+    then RoPE in fp32 cast again (two roundings), then ``attn_fn(q, k, v)``.
     ``forward``'s ``attn_fn`` replaces the module's for one call (the merged
-    global attention of one forward, `ops/token_merge.py`)."""
+    global attention of one forward, `ops/token_merge.py`, or the training
+    route)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  proj_bias: bool = True, qk_norm: bool = False,
@@ -159,10 +165,7 @@ class Attention(nn.Module):
         qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.unbind(2)
         qk_norm = self.q_norm is not None
-        if rope is not None or qk_norm:
-            if not getattr(attn_fn, "supports_fused_qk_prep", False):
-                raise ValueError("qk-norm and RoPE need an attn_fn with "
-                                 "supports_fused_qk_prep")
+        if (rope is not None or qk_norm) and getattr(attn_fn, "supports_fused_qk_prep", False):
             norm_params = None
             if qk_norm:
                 norm_params = (self.q_norm.weight, self.q_norm.bias,
@@ -172,6 +175,12 @@ class Attention(nn.Module):
                 cos, sin = pack_rope_tables(rope)
             out = attn_fn(q, k, v, rope_cos=cos, rope_sin=sin, qk_norm_params=norm_params)
         else:
+            if qk_norm:
+                q = self.q_norm(q).to(self.dtype)
+                k = self.k_norm(k).to(self.dtype)
+            if rope is not None:
+                q = apply_rope_2d(q, rope)
+                k = apply_rope_2d(k, rope)
             out = attn_fn(q, k, v)
         return self.proj(out.reshape(B, N, C))
 
@@ -179,7 +188,8 @@ class Attention(nn.Module):
 class CrossAttention(nn.Module):
     """croco-style cross-attention: q from ``query``, k/v from a context map.
 
-    ``attn_fn`` defaults to the flash-attention dispatcher."""
+    ``attn_fn`` defaults to the flash-attention dispatcher; ``forward``'s
+    replaces it for one call (the training route)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  dtype: torch.dtype = torch.float32,
@@ -194,14 +204,14 @@ class CrossAttention(nn.Module):
         self.projv = Linear(dim, dim, bias=qkv_bias, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
 
-    def forward(self, query: torch.Tensor, key: torch.Tensor,
-                value: torch.Tensor) -> torch.Tensor:
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                attn_fn: Optional[Callable] = None) -> torch.Tensor:
         B, Nq, C = query.shape
         hd = C // self.num_heads
         q = self.projq(query).reshape(B, Nq, self.num_heads, hd)
         k = self.projk(key).reshape(B, -1, self.num_heads, hd)
         v = self.projv(value).reshape(B, -1, self.num_heads, hd)
-        return self.proj(self.attn_fn(q, k, v).reshape(B, Nq, C))
+        return self.proj((attn_fn or self.attn_fn)(q, k, v).reshape(B, Nq, C))
 
 
 class Block(nn.Module):

@@ -4,12 +4,14 @@ Counterpart of `iggt_official_tpu/layers/vit.py`: cls + register tokens,
 absolute pos-embed (interpolated when the patch grid differs from the
 trained one), pre-norm blocks with layerscale (their pre-norms through the
 fused LayerNorm kernel with ``fused_ln=True``), final LayerNorm; returns the
-normalized patch tokens.  Images arrive NHWC.
+normalized patch tokens.  Images arrive NHWC.  The attention is fixed at
+construction and may be replaced per call, as the JAX package takes it at
+apply time.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -29,8 +31,10 @@ class ConvPatchEmbed(nn.Module):
         self.patch_size = patch_size
         self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=patch_size, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, fused_ln: bool = False) -> torch.Tensor:
-        """``fused_ln`` is taken for DinoViT's signature; there is no norm here."""
+    def forward(self, x: torch.Tensor, fused_ln: bool = False,
+                attn_fn: Optional[Callable] = None) -> torch.Tensor:
+        """``fused_ln`` and ``attn_fn`` are taken for DinoViT's signature;
+        there is no norm and no attention here."""
         B, H, W, _ = x.shape
         p = self.patch_size
         if H % p or W % p:
@@ -61,7 +65,10 @@ class DinoViT(nn.Module):
         )
         self.norm = LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
-    def forward(self, images: torch.Tensor, fused_ln: bool = False) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, fused_ln: bool = False,
+                attn_fn: Optional[Callable] = None) -> torch.Tensor:
+        """``attn_fn`` replaces the blocks' attention for one call (the
+        training route)."""
         cfg = self.cfg
         B, H, W, _ = images.shape
         p = cfg.patch_size
@@ -73,7 +80,7 @@ class DinoViT(nn.Module):
             regs = self.register_tokens.expand(B, -1, -1).to(x.dtype)
             x = torch.cat([x[:, :1], regs, x[:, 1:]], dim=1)
         for blk in self.blocks:
-            x = blk(x, fused_ln=fused_ln)
+            x = blk(x, fused_ln=fused_ln, attn_fn=attn_fn)
         x = self.norm(x)
         return x[:, 1 + cfg.num_register_tokens:].to(self.dtype)
 

@@ -14,14 +14,21 @@ blocks attend over merged keys and values (`ops/token_merge.py`): the plan is
 computed once per forward on the trunk's input tokens in fp32, with view 0
 and every view's camera and register tokens protected, ``r`` clamped to the
 unprotected candidates (one view: no merge); the frame blocks are untouched.
+``forward``'s ``attn_fn`` replaces the dispatcher for one call in the frame,
+global and DINOv2 blocks (the training step passes `sdpa_plain`, as the JAX
+step trains through `sdpa_xla`), and ``remat=True`` under grad recomputes
+each frame and global block in the backward pass
+(`torch.utils.checkpoint`), as the JAX package's ``nn.remat(Block)``; the
+DINOv2 blocks are kept, as there.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from iggt_official_tpu_torch.config import AggregatorConfig
 from iggt_official_tpu_torch.layers.blocks import Block
@@ -76,7 +83,8 @@ class Aggregator(nn.Module):
         self.global_blocks = blocks(attn_fn)
 
     def forward(self, images: torch.Tensor, fused_ln: bool = False,
-                global_merge_r: int = 0) -> Tuple[List[torch.Tensor], int]:
+                global_merge_r: int = 0, attn_fn: Optional[Callable] = None,
+                remat: bool = False) -> Tuple[List[torch.Tensor], int]:
         cfg = self.cfg
         B, S, H, W, C_in = images.shape
         if C_in != 3:
@@ -86,7 +94,7 @@ class Aggregator(nn.Module):
         mean = torch.tensor(_RESNET_MEAN, dtype=torch.float32, device=images.device)
         std = torch.tensor(_RESNET_STD, dtype=torch.float32, device=images.device)
         x = ((images.float() - mean) / std).reshape(B * S, H, W, 3).to(self.dtype)
-        patch_tokens = self.patch_embed(x, fused_ln=fused_ln)
+        patch_tokens = self.patch_embed(x, fused_ln=fused_ln, attn_fn=attn_fn)
 
         cam = slice_expand_and_flatten(self.camera_token, B, S).to(patch_tokens.dtype)
         reg = slice_expand_and_flatten(self.register_token, B, S).to(patch_tokens.dtype)
@@ -109,11 +117,16 @@ class Aggregator(nn.Module):
                 plan = compute_merge_plan(tokens.reshape(B, S * P, C).float(), r, protect_t)
                 merged_attn = make_merged_attention(plan)
 
+        def run(block, x, rope, fn):
+            if remat and torch.is_grad_enabled():
+                return checkpoint(block, x, rope, fused_ln, fn, use_reentrant=False)
+            return block(x, rope, fused_ln, attn_fn=fn)
+
         outputs: List[torch.Tensor] = []
         for frame_block, global_block in zip(self.frame_blocks, self.global_blocks):
-            tokens = frame_block(tokens.reshape(B * S, P, C), rope_frame, fused_ln)
+            tokens = run(frame_block, tokens.reshape(B * S, P, C), rope_frame, attn_fn)
             frame_inter = tokens.reshape(B, S, P, C)
-            tokens = global_block(tokens.reshape(B, S * P, C), rope_global, fused_ln,
-                                  attn_fn=merged_attn)
+            tokens = run(global_block, tokens.reshape(B, S * P, C), rope_global,
+                         merged_attn or attn_fn)
             outputs.append(torch.cat([frame_inter, tokens.reshape(B, S, P, C)], dim=-1))
         return outputs, psi

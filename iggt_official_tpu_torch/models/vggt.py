@@ -10,7 +10,13 @@ default, bf16 as the fast mode), the camera head and the track head in fp32.
 ``forward(images, fused_ln=True)`` runs the trunk's pre-norms through the
 fused LayerNorm kernel and ``global_merge_r > 0`` merges that many K/V tokens
 out of every global block (`ops/token_merge.py`), as the JAX package takes
-both at apply time.
+both at apply time; so are ``attn_fn`` (None: the kernel dispatcher fixed at
+construction), ``part_attn_fn`` (IGGT: the part head's cross-attention; None
+takes ``attn_fn``) and ``remat`` (each frame and global block recomputed in
+the backward pass).  The training step passes `layers/blocks.py::sdpa_plain`
+to the trunk and the DINOv2 blocks, as the JAX step applies its
+``sdpa_xla`` there, and `ops/flash_attention.py::attention_train` to the
+part head, where the JAX package's cross-attention keeps its dispatcher.
 Outputs are channels-last: depth (B,S,H,W,1), world_points (B,S,H,W,3),
 part_feat (B,S,H,W,8), pose_enc (B,S,9); with query points (B, N, 2) in
 pixels, track (B,S,N,2) (the last iteration's), vis and conf (B,S,N).
@@ -22,7 +28,7 @@ full-resolution fp32 activations are bounded by the chunk, not by S.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -104,12 +110,13 @@ class VGGT(nn.Module):
 
     def forward(self, images: torch.Tensor, query_points: Optional[torch.Tensor] = None,
                 fused_ln: bool = False, global_merge_r: int = 0,
-                feat_only: bool = False) -> Preds:
+                feat_only: bool = False, attn_fn: Optional[Callable] = None,
+                remat: bool = False) -> Preds:
         """images: (B, S, H, W, 3) in [0, 1].  ``feat_only``: the last
         aggregated token map (``cam_token``), the raw (preds, conf) pairs of
         the depth and point heads and the images; no camera, no tracking."""
         B, S, H, W, _ = images.shape
-        tokens_list, psi = self.aggregator(images, fused_ln, global_merge_r)
+        tokens_list, psi = self.aggregator(images, fused_ln, global_merge_r, attn_fn, remat)
         if feat_only:
             return {"cam_token": tokens_list[-1],
                     "depth": self._dense(self.depth_head, tokens_list, (H, W), psi)[0],
@@ -136,11 +143,13 @@ class IGGT(VGGT):
             self.part_head = PartHead(p, head_dtype)
 
     def forward(self, images: torch.Tensor, query_points: Optional[torch.Tensor] = None,
-                fused_ln: bool = False, global_merge_r: int = 0) -> Preds:
+                fused_ln: bool = False, global_merge_r: int = 0,
+                attn_fn: Optional[Callable] = None, remat: bool = False,
+                part_attn_fn: Optional[Callable] = None) -> Preds:
         """images: (B, S, H, W, 3) in [0, 1]; query_points (B, N, 2) pixels."""
         cfg = self.cfg
         B, S, H, W, _ = images.shape
-        tokens_list, psi = self.aggregator(images, fused_ln, global_merge_r)
+        tokens_list, psi = self.aggregator(images, fused_ln, global_merge_r, attn_fn, remat)
         preds: Preds = {}
         pyramids = self._heads(preds, tokens_list, (H, W), psi, query_points)
         if not cfg.enable_part:
@@ -155,21 +164,23 @@ class IGGT(VGGT):
             cs = toks[0].shape[1]
             proj = self.part_adaptor(toks, (H, W), psi)
             pyr = [t[:, v].reshape(B * cs, *t.shape[2:]) for t in levels]
-            feats.append(self.part_head(proj, pyr, (H, W), (B, cs)))
+            feats.append(self.part_head(proj, pyr, (H, W), (B, cs),
+                                        attn_fn=part_attn_fn or attn_fn))
         preds["part_feat"] = torch.cat(feats, dim=1)
         return preds
 
 
 def build_model(cfg: Optional[ModelConfig] = None,
                 device: Optional[Union[str, torch.device]] = None,
-                seed: int = 0) -> VGGT:
+                seed: int = 0, train: bool = False) -> VGGT:
     """IGGT (``cfg.name == "iggt"``) or VGGT on ``device`` (the card unless
     the caller asks for another), randomly initialized from ``seed`` (no init
-    on the "meta" device), in eval mode with gradients off."""
+    on the "meta" device), in eval mode with gradients off; with
+    ``train=True`` the same weights in train mode with gradients on."""
     cfg = cfg or ModelConfig()
     dev = resolve_device(device)
     with torch.device(dev):
         model = IGGT(cfg) if cfg.name == "iggt" else VGGT(cfg)
     if dev.type != "meta":
         init_params(model, torch.Generator(device=dev).manual_seed(seed))
-    return model.eval().requires_grad_(False)
+    return model.train(train).requires_grad_(train)

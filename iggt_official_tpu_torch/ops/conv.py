@@ -64,15 +64,18 @@ class FrozenBatchNorm(nn.Module):
     """Inference-form BatchNorm2d over the channel (last) axis.
 
     y = (x - running_mean) * rsqrt(running_var + eps) * weight + bias, in fp32,
-    returned in x's dtype.  Keeps BatchNorm2d's state-dict entries."""
+    returned in x's dtype.  Keeps BatchNorm2d's state-dict entries.  The
+    running statistics are parameters, as in the JAX package (its ``mean`` /
+    ``var`` params), so the training step gives them gradients and updates
+    them with the optimizer as it does."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+        self.running_mean = nn.Parameter(torch.zeros(features))
+        self.running_var = nn.Parameter(torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

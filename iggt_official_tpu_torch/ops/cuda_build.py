@@ -12,6 +12,10 @@ unchanged one is loaded as it is.  The
 compiler's register / spill report is kept beside the library.  Nothing is
 built while a module is imported: the build runs inside the first call that
 launches a kernel (or `build_all`).
+
+The kernels have no backward, as the JAX package's Pallas kernels have no
+VJP: `refuse_autograd` is every wrapper's first check, on the CPU too, so a
+wrapper never hands autograd an output without a ``grad_fn``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -88,3 +94,20 @@ def build_all() -> Dict[str, str]:
 def load(name: str) -> ctypes.CDLL:
     so, _ = build(name)
     return ctypes.CDLL(str(so))
+
+
+def refuse_autograd(wrapper: str, tensors: Iterable[Optional[torch.Tensor]]) -> None:
+    """Raise ValueError when autograd would record ``wrapper``'s call: grad
+    mode on and any of ``tensors`` requiring a gradient.  The kernel's output
+    would carry no ``grad_fn`` and cut the gradient without a word; on either
+    device the call is refused instead."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{wrapper}: an input requires grad, and the kernel has no backward "
+            "(nor has the JAX package's Pallas kernel a VJP). Train through plain "
+            "attention and LayerNorm: pass attn_fn=sdpa_plain "
+            "(iggt_official_tpu_torch.layers.blocks) and fused_ln=False, as "
+            "iggt_official_tpu_torch.train.step does; run inference under "
+            "torch.no_grad() or torch.inference_mode()")

@@ -26,7 +26,13 @@ kernels of that module map onto `csrc/flash_attention.cu`:
   prepped K rows, so the prep runs before the merge and the attention after.
 
 The wrappers launch the kernels for CUDA tensors (or raise) and take the
-plain version only for CPU tensors.  Each wrapper counts its calls that
+plain version only for CPU tensors.  On either device they refuse inputs
+that require grad while grad mode is on (`cuda_build.refuse_autograd`): the
+kernels have no backward.  `attention_train` is the one route through a
+kernel under autograd: `flash_attention`'s forward, and a backward through
+the autograd of `flash_attention_plain`, recomputed from the saved q, k, v
+(the training step's route for the part head's cross-attention, which the
+JAX step sends to its dispatcher).  Each wrapper counts its calls that
 launch in a plain integer attribute (`flash_attention.launches`,
 `flash_attention_fused.launches`, `qk_prep.launches`; a fused call is one
 count for its prep and attention launches).
@@ -312,6 +318,7 @@ def flash_attention(
 
     ``key_bias`` (B, Nk) fp32 is added to every query's logits.  CUDA
     tensors launch the kernel; CPU tensors take `flash_attention_plain`."""
+    cuda_build.refuse_autograd("flash_attention", (q, k, v, key_bias))
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, key_bias)
     out = _launch(q, k, v, key_bias)
@@ -338,6 +345,8 @@ def flash_attention_fused(
     q/k/v: (B, N, H, D) in the compute dtype, *before* norm/RoPE.
     rope_cos/rope_sin: (B, N, D) fp32 packed tables.
     qk_norm_params: (gamma_q, beta_q, gamma_k, beta_k), each (D,) fp32."""
+    cuda_build.refuse_autograd("flash_attention_fused",
+                               (q, k, v, rope_cos, rope_sin, key_bias, *(qk_norm_params or ())))
     if q.device.type == "cpu":
         gq, bq, gk, bk = qk_norm_params if qk_norm_params is not None else (None,) * 4
         q = qk_prep_plain(q, gq, bq, rope_cos, rope_sin, eps)
@@ -364,6 +373,7 @@ def qk_prep(
 
     Arguments as `flash_attention_fused`'s.  CUDA tensors launch the prep
     kernel (one launch preps both); CPU tensors take `qk_prep_plain`."""
+    cuda_build.refuse_autograd("qk_prep", (q, k, rope_cos, rope_sin, *(qk_norm_params or ())))
     gq, bq, gk, bk = qk_norm_params if qk_norm_params is not None else (None,) * 4
     if q.device.type == "cpu":
         return (qk_prep_plain(q, gq, bq, rope_cos, rope_sin, eps),
@@ -420,3 +430,31 @@ def attention(
 
 
 attention.supports_fused_qk_prep = True
+
+
+class _PlainBackward(torch.autograd.Function):
+    """`flash_attention` forward; the gradient of `flash_attention_plain`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v)      # grad mode is off here: no refusal
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = flash_attention_plain(*qkv)
+        return torch.autograd.grad(out, qkv, grad)
+
+
+def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Attention without q/k prep under autograd: the forward through
+    `flash_attention` (the kernel for CUDA tensors, one count of its
+    ``launches``), the backward through the autograd of
+    `flash_attention_plain`, recomputed from q, k, v (no backward kernel: the
+    JAX package has none).  The training step's route for the part head's
+    cross-attention, where the JAX step applies its dispatcher `attention`,
+    which on a TPU sends the level-1x injection (512-2048 tokens) to the
+    Pallas flash kernel."""
+    return _PlainBackward.apply(q, k, v)

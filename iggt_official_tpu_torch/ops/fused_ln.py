@@ -11,7 +11,10 @@ either way.
 
 `fused_layernorm` launches the CUDA kernel (`csrc/fused_ln.cu`) for CUDA
 tensors, or raises, and takes `fused_layernorm_plain` only for CPU tensors.
-It counts its launches in `fused_layernorm.launches`.
+It counts its launches in `fused_layernorm.launches`.  On either device it
+refuses inputs that require grad while grad mode is on (the kernel has no
+backward; the JAX docstring says as much: the training step keeps the plain
+LayerNorm).
 """
 
 from __future__ import annotations
@@ -122,6 +125,7 @@ def fused_layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """LayerNorm of ``x`` (..., D) over D, fp32 inside, returned in
     ``out_dtype`` (default x's dtype).  CUDA tensors launch the kernel; CPU
     tensors take `fused_layernorm_plain`."""
+    cuda_build.refuse_autograd("fused_layernorm", (x, weight, bias))
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return fused_layernorm_plain(x, weight, bias, eps, out_dtype)

@@ -32,14 +32,24 @@ weights under ``"model"``) loads through the same steps
 (`load_reference_state`): none of its names matches a dead-entry rule, so
 step 3 drops nothing, and the port's SAM2 keeps the reference's names
 (pinned by ``tests/data/sam2_l_state_dict_manifest.json``).
+
+The save side is the training loop's (`train/loop.py`): `save_checkpoint`
+writes ``{"model": state dict in the reference's names, "optimizer": ...,
+"step": ..., "args": ...}`` to a temporary name in the target directory and
+renames it into place, so a reader never sees half a file; `IGGTProcessor`
+loads such a file through the steps above (the weights under ``"model"``),
+and `load_training_checkpoint` reads it back whole, with
+``weights_only=True``.  The JAX package's orbax format is not read (the card
+machine has no orbax).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import re
-from typing import Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -123,3 +133,28 @@ def load_reference_state(model: torch.nn.Module, state: Mapping,
         for line in report["shape_mismatch"]:
             log(f"checkpoint: shape mismatch {line}")
     return report
+
+
+def save_checkpoint(path: str, model: torch.nn.Module, optimizer_state: Mapping,
+                    step: int, args: Optional[Mapping[str, Any]] = None) -> None:
+    """Write a training checkpoint to ``path``: to ``path``'s directory under a
+    temporary name first, then renamed into place."""
+    state = {"model": model.state_dict(), "optimizer": optimizer_state, "step": int(step),
+             "args": None if args is None else dict(args)}
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_training_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
+    """A checkpoint written by `save_checkpoint`, read with
+    ``weights_only=True``."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        state = torch.load(path, map_location=map_location, weights_only=True)
+    if not isinstance(state, Mapping) or not {"model", "optimizer", "step"} <= set(state):
+        raise ValueError(f"{path} is not a training checkpoint (model, optimizer, step)")
+    return dict(state)

@@ -103,13 +103,25 @@ def test_block_with_qk_norm_and_rope_matches_jax(dtype, tol):
 
 
 def test_attention_prep_needs_a_fused_attn_fn():
-    """qk-norm / RoPE are applied only by an attn_fn of the fused-prep
-    protocol; a plain attn_fn is refused rather than given unprepped q/k."""
-    attn = tblocks.Attention(64, 2, qk_norm=True, attn_fn=tblocks.sdpa_plain)
-    with pytest.raises(ValueError, match="supports_fused_qk_prep"):
-        attn(torch.zeros(1, 4, 64))
-    plain = tblocks.Attention(64, 2, attn_fn=tblocks.sdpa_plain)
-    assert plain(torch.zeros(1, 4, 64)).shape == (1, 4, 64)
+    """qk-norm / RoPE reach raw q/k only through an attn_fn of the fused-prep
+    protocol; a plain attn_fn is never given unprepped q/k: the module preps
+    them first (the JAX package's unfused branch), so in fp32 both routes
+    give the same attention."""
+    B, grid, psi, C, H = 1, 3, 5, 64, 2
+    attn = tblocks.Attention(C, H, qk_norm=True, attn_fn=tblocks.sdpa_plain)
+    load_numpy(attn, perturbed_state_dict(attn, 11))
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (B, psi + grid * grid, C)).astype(np.float32))
+    rope = trope.compute_rope_2d(trope.make_patch_positions(grid, grid, B, psi), C // H)
+    with torch.inference_mode():
+        plain = attn(x, rope)
+        fused = attn(x, rope, attn_fn=tfa.attention)
+        unprepped = tblocks.Attention(C, H, attn_fn=tblocks.sdpa_plain)
+        unprepped.load_state_dict(attn.state_dict(), strict=False)
+        raw = unprepped(x)
+    assert plain.shape == (B, psi + grid * grid, C)
+    np.testing.assert_allclose(plain.numpy(), fused.numpy(), rtol=1e-5, atol=1e-6)
+    assert np.abs(plain.numpy() - raw.numpy()).max() > 1e-3
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
