@@ -34,7 +34,8 @@ order; any failure exits non-zero:
    of elements that differ; faults are the last 8-element chunk left out of
    the reductions, the bias not added, the weight not applied; at the main
    shape also the device time per call of the kernel and of `F.layer_norm`
-   (torch.profiler).  bucket_topk
+   (torch.profiler), and a call of each timed in turns in the same run (the
+   median of 60, CUDA events around each call).  bucket_topk
    at Q = R = 150,000, k = 64, nb = 1024: 0 index mismatches in the bucket
    minima and the top-k; faults are bucket = index mod (nb - 1), reversed tie
    order, a dropped last reference tile; rechecks per (query, bucket); then
@@ -141,7 +142,28 @@ order; any failure exits non-zero:
    summary.json, and the gate passing against the serial outputs as
    goldens and failing against a golden depth scaled by 1.02.
 
-10. train: the training path.  The trunk and the DINOv2 blocks train
+10. data: the rest of the data layer at the sources' sizes, all seeded, no
+   card: a DL3DV-style COLMAP capture (24 PNG frames 960x540, one PINHOLE
+   camera, 20,000 points3D with tracks and unmatched keypoints, written with
+   the port's `data/colmap.py` in .bin and .txt; geometric depth bins at
+   480x270 by `preprocess/dense.py`) read back equal in both formats and
+   rewritten byte-equal, then `dl3dv.process_scene` (each npy the nearest 2x
+   upsample clamped to [0, 500], invalid 0), `convert_colmap_scene` (depth
+   PNGs equal to clip(d * 1000) as uint16, poses the inverse of the written
+   world-to-camera within 1e-6, intrinsics and colour equal) and
+   `edit_resolution` on a half-size copy (the ratio rule); 4 EXR frames at
+   1920x1080 (this script's own OpenEXR writer: HALF/ZIP, FLOAT/ZIPS,
+   FLOAT/NONE) in MvsSynth's and MegaDepth's layouts, read through the
+   registered loaders (their 24-frame minimum lowered to 4): each depth equal
+   to the written array, and the loader's to its threshold; an SA-1B TSV
+   shard (4 rows, a 2250x1500 JPEG and 60 RLE masks each) through `TSVFile`
+   (rows seek back equal), the masks decoded equal, one `SA1BDataset`
+   sample at 1024 with the shapes its docstring states; an EntitySeg COCO
+   set (rectangle polygons) through `EntityImage`; a `_BASE_` YAML chain and
+   dot-keyed files with overrides through the config loaders on the port's
+   YAML subset reader, equal to literal dicts.  Host seconds per step.
+
+11. train: the training path.  The trunk and the DINOv2 blocks train
    through plain attention, as the JAX step trains through XLA; the part
    head's cross-attention, which the JAX step leaves on its dispatcher (on a
    TPU the Pallas flash kernel at the cell's 1,036 tokens), runs the flash
@@ -173,8 +195,14 @@ order; any failure exits non-zero:
    except where (b) read zero on the CPU: `cross_attention_1`, computed
    and discarded), the checkpoint reloaded byte-equal, the resume's first
    step and learning rate, and a separate 10-step run on one fixed batch
-   whose loss must fall.  The kernels phase holds the flash kernel at the
-   cell's part-head shape (4, 1036, 8, 32) fp32.
+   whose loss must fall; then, with that run's model and optimizer, 2 steps
+   on the data phase's converted COLMAP scene (the port's `SceneDirDataset`
+   through `get_data_loader`) and 1 on its MvsSynth EXR scene: finite losses
+   and grad_norm, no part loss (no instance_ids), one flash launch per step
+   and no other, step time and peak memory beside the card's name and power
+   limit.  The train phase runs the data phase first when it runs alone.
+   The kernels phase holds the flash kernel at the cell's part-head shape
+   (4, 1036, 8, 32) fp32.
 
 The kernels phase also holds token merging's two launches at the merged
 8x518 global block: the q/k prep kernel alone (1, 10992, 16, 64) against
@@ -1052,6 +1080,32 @@ def ln_bound_ms(rows, D, in_name, out_name):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
+LN_TURNS = 60
+
+
+def calls_in_turns(fns: dict, calls: int = LN_TURNS) -> dict:
+    """{name: median ms of one call}: the functions called in turns, each
+    call between its own two CUDA events (host work to launch it included,
+    as a caller sees it), after a warm-up of 5 rounds."""
+    import torch
+
+    for _ in range(5):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    events = {name: [] for name in fns}
+    for _ in range(calls):
+        for name, fn in fns.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events[name].append((start, end))
+    torch.cuda.synchronize()
+    return {name: float(np.median([a.elapsed_time(b) for a, b in ev]))
+            for name, ev in events.items()}
+
+
 def check_fused_ln():
     """Each case: the kernel against `fused_layernorm_plain` on rows with a
     per-row offset and three outlier channels, the share of elements that
@@ -1101,15 +1155,21 @@ def check_fused_ln():
         unit = "ulp" if out_name == "bfloat16" else "rel"
         device = {}
         if label == MAIN_CASE["fused_ln"]:
+            def run_library():
+                return F.layer_norm(x, (D,), wl, bl, eps)
+
             device = {"device_ms": device_ms(run_kernel),
-                      "library_device_ms": device_ms(
-                          lambda: F.layer_norm(x, (D,), wl, bl, eps))}
+                      "library_device_ms": device_ms(run_library),
+                      **calls_in_turns({"turns_ms": run_kernel, "library_turns_ms": run_library})}
         log(f"[kernels] fused_ln {label:40s} ({rows}, {D}) {in_name}->{out_name} eps {eps:g}: "
             f"max err {err:.3g} {unit} (limit {limit:g}), {100 * differ:.4f}% of elements "
             f"differ {'ok' if ok else 'FAIL'} | ms={ms:.4f} bound_ms={bound_ms:.4f} "
             f"({bound_by}) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (F.layer_norm)"
             + (f" | device time per call (profiler): kernel {device['device_ms']:.4f} ms, "
-               f"F.layer_norm {device['library_device_ms']:.4f} ms" if device else ""))
+               f"F.layer_norm {device['library_device_ms']:.4f} ms | in turns, median of "
+               f"{LN_TURNS} calls each (CUDA events around each call): wrapper "
+               f"{device['turns_ms']:.4f} ms, F.layer_norm {device['library_turns_ms']:.4f} ms "
+               f"({nvidia_smi_line()})" if device else ""))
         log("[kernels]   planted faults: "
             + ", ".join(f"{name} {e:.3g} {unit}" for name, e in faults.items())
             + (" -- all caught" if caught else " -- NOT ALL CAUGHT"))
@@ -1378,7 +1438,8 @@ def kernels_summary(results, launches, extra):
             **{k: main[k] for k in ("library_queries", "library_kernel_ms", "kernel_ms",
                                     "rechecks_per_query", "rechecks_per_pair",
                                     "probe_error_units",
-                                    "device_ms", "library_device_ms")
+                                    "device_ms", "library_device_ms", "turns_ms",
+                                    "library_turns_ms")
                if k in main},
             "cases": [{k: r[k] for k in CASE_KEYS[kernel]} for r in cases],
         })
@@ -3261,7 +3322,7 @@ def run_batch_eval(proc, tmp: str, launches_out: dict) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: train
+# phase 11: train
 
 TRAIN_SCALED = dict(embed_dim=64, depth=2, num_heads=2, vit_depth=1, img_size=56,
                     patch_embed="dinov2_vitl14_reg")
@@ -3599,9 +3660,9 @@ def reckoned_memory_gb(n_params: int) -> dict:
             "heads' activations (coarse)": 10.0}
 
 
-def run_train_cell(zero_patterns, launches_out: dict) -> bool:
+def run_train_cell(zero_patterns, launches_out: dict, data: dict) -> bool:
     """The full-width training cell through `app/train.py::main` (see the
-    module note, phase 10), under torch's default TF32 settings, which the
+    module note, phase 11), under torch's default TF32 settings, which the
     training CLI keeps (cuDNN convolutions in TF32, matmuls in fp32)."""
     import gc
 
@@ -3612,12 +3673,12 @@ def run_train_cell(zero_patterns, launches_out: dict) -> bool:
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
     try:
-        return _run_train_cell(zero_patterns, launches_out)
+        return _run_train_cell(zero_patterns, launches_out, data)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
-def _run_train_cell(zero_patterns, launches_out: dict) -> bool:
+def _run_train_cell(zero_patterns, launches_out: dict, data: dict) -> bool:
     import gc
     import itertools
     import shutil
@@ -3760,18 +3821,647 @@ def _run_train_cell(zero_patterns, launches_out: dict) -> bool:
         log(f"[train] fixed-batch curve ({TRAIN_CURVE_STEPS} steps): "
             f"{'falls' if falls else 'DOES NOT FALL'}: " + ", ".join(f"{v:.4f}" for v in curve))
         ok &= falls
+        ok &= run_converted_steps(state, data["converted"], data["tmp"])
         del state
         gc.collect()
         torch.cuda.empty_cache()
     return ok
 
 
-def run_train(launches_out: dict) -> bool:
+def run_train(launches_out: dict, data: dict) -> bool:
     ok = check_train_guard()
     agree, zero = check_train_agreement()
     ok &= agree
-    ok &= run_train_cell(zero, launches_out)
+    ok &= run_train_cell(zero, launches_out, data)
     return ok
+
+
+CONVERTED_STEPS = (("converted COLMAP scene (SceneDirDataset)", 2), ("MvsSynth EXR scene", 1))
+
+
+def run_converted_steps(state, data_root: str, exr_root: str) -> bool:
+    """Steps on the data phase's scenes with the fixed-batch run's model and
+    optimizer: CONVERTED_STEPS' counts, 1 x 4 views at TRAIN_RESOLUTION
+    through `get_data_loader`.  The scenes have no instance_ids, so the part
+    loss is skipped (as the JAX step skips it); the part head still runs its
+    cross-attention through the flash kernel, once per step."""
+    import torch
+
+    from iggt_official_tpu_torch.config import ModelConfig
+    from iggt_official_tpu_torch.data.loader import get_data_loader
+    from iggt_official_tpu_torch.data.scene_dataset import SceneDirDataset
+    from iggt_official_tpu_torch.models.vggt import _view_chunks
+    from iggt_official_tpu_torch.train.loop import to_device
+    from iggt_official_tpu_torch.train.step import make_train_step
+
+    # convert_colmap_scene keeps the frames' extension: PNG here
+    converted = type("ConvertedColmapScene", (SceneDirDataset,), {"color_ext": "*.png"})(
+        data_root, dset="scans", resolution=TRAIN_RESOLUTION, seed=SEED)
+    mvs, _ = exr_datasets(exr_root)
+    step_fn = make_train_step(state.model, state.optimizer)
+    chunks = len(_view_chunks(4, ModelConfig().part.frames_chunk_size))
+    smi = nvidia_smi_line()
+    ok, rows = True, []
+    for (label, steps), ds in zip(CONVERTED_STEPS, (converted, mvs)):
+        loader = get_data_loader(ds, seq_min_len=4, seq_max_len=4, batch_size=4)
+        for k in range(steps):
+            t0 = time.perf_counter()
+            batch = to_device(next(loader), torch.device("cuda"))
+            torch.cuda.synchronize()
+            data_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            _, metrics = step_fn(batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            launched = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            metrics = {m: float(v) for m, v in metrics.items()}
+            want = {n: (chunks if n == "flash_attention" else 0) for n in launched}
+            good = (all(np.isfinite(v) for v in metrics.values()) and "loss/part" not in metrics
+                    and launched == want and tuple(batch["images"].shape[:2]) == (1, 4))
+            log(f"[train] {label} step {k}: images {tuple(batch['images'].shape)}, step "
+                f"{step_s:.3f} s, batch {data_s:.3f} s, peak {peak:.2f} GiB ({smi}); "
+                + ", ".join(f"{m} {v:.6g}" for m, v in metrics.items())
+                + f"; launches {launched}: {'ok' if good else 'FAIL'}")
+            ok &= good
+            rows.append(step_s)
+    log(f"[train] converted-scene steps: {', '.join(f'{s:.3f}' for s in rows)} s "
+        f"({'ok' if ok else 'FAIL'}: finite losses and grad_norm, no part loss, "
+        f"{chunks} flash launch per step and no other)")
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# phase 10: data (the converters, the EXR loaders, the 2-D mask sets, configs)
+
+COLMAP_FRAMES, COLMAP_SIZE = 24, (960, 540)     # DL3DV-10K's 960P frames, (W, H)
+COLMAP_POINTS = 20_000
+COLMAP_DENSE_SIZE = (480, 270)                  # the geometric depth bins, upsampled 2x
+EXR_FRAMES, EXR_SIZE = 4, (1920, 1080)          # MVS-Synth's GTAV_1080
+EXR_ENCODINGS = (("HALF", "ZIP"), ("FLOAT", "ZIPS"), ("FLOAT", "NONE"), ("HALF", "ZIP"))
+SA1B_ROWS, SA1B_SIZE, SA1B_MASKS = 4, (2250, 1500), 60   # (W, H): shorter side 1500
+SA1B_IMAGE_SIZE = 1024
+ENTITY_IMAGES, ENTITY_POLYGONS = 2, 20
+EXR_PIXEL = {"HALF": (1, "<f2"), "FLOAT": (2, "<f4")}
+EXR_COMPRESSION = {"NONE": (0, 1), "ZIPS": (2, 1), "ZIP": (3, 16)}   # (code, scanlines per chunk)
+
+
+def _exr_attr(name: str, kind: str, value: bytes) -> bytes:
+    return name.encode() + b"\0" + kind.encode() + b"\0" + len(value).to_bytes(4, "little") + value
+
+
+def _exr_zip(raw: bytes) -> bytes:
+    """OpenEXR's ZIP / ZIPS chunk: the bytes split into even and odd halves,
+    each byte replaced by its difference from the one before plus 128, then
+    zlib; a chunk that would not shrink is stored as it is."""
+    import zlib
+
+    b = np.frombuffer(raw, np.uint8)
+    t = np.concatenate([b[0::2], b[1::2]]).astype(np.int16)
+    t[1:] = (t[1:] - t[:-1] + 128) & 0xFF
+    z = zlib.compress(t.astype(np.uint8).tobytes())
+    return z if len(z) < len(raw) else raw
+
+
+def write_exr(path: str, planes: dict, pixel: str = "FLOAT", compression: str = "ZIP") -> None:
+    """A minimal single-part scanline OpenEXR writer, this script's own (the
+    port has none): ``planes`` {channel: (H, W) array}, all of one pixel type
+    (HALF or FLOAT), compression NONE, ZIPS or ZIP, the chunks in increasing
+    y.  Attributes in OpenEXR's (alphabetical) order."""
+    import struct
+
+    ptype, dtype = EXR_PIXEL[pixel]
+    code, lines = EXR_COMPRESSION[compression]
+    names = sorted(planes)
+    H, W = planes[names[0]].shape
+    chlist = b"".join(n.encode() + b"\0" + struct.pack("<iB3xii", ptype, 0, 1, 1)
+                      for n in names) + b"\0"
+    box = struct.pack("<4i", 0, 0, W - 1, H - 1)
+    header = (b"\x76\x2f\x31\x01" + struct.pack("<I", 2)
+              + _exr_attr("channels", "chlist", chlist)
+              + _exr_attr("compression", "compression", bytes([code]))
+              + _exr_attr("dataWindow", "box2i", box)
+              + _exr_attr("displayWindow", "box2i", box)
+              + _exr_attr("lineOrder", "lineOrder", b"\0")
+              + _exr_attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + _exr_attr("screenWindowCenter", "v2f", struct.pack("<2f", 0.0, 0.0))
+              + _exr_attr("screenWindowWidth", "float", struct.pack("<f", 1.0)) + b"\0")
+    chunks = []
+    for y in range(0, H, lines):
+        rows = [np.ascontiguousarray(planes[n][y:y + lines], dtype).view(np.uint8)
+                for n in names]
+        raw = np.concatenate([r.reshape(r.shape[0], -1) for r in rows], axis=1).tobytes()
+        data = raw if compression == "NONE" else _exr_zip(raw)
+        chunks.append(struct.pack("<ii", y, len(data)) + data)
+    offsets, pos = [], len(header) + 8 * len(chunks)
+    for c in chunks:
+        offsets.append(pos)
+        pos += len(c)
+    with open(path, "wb") as f:
+        f.write(header + struct.pack(f"<{len(offsets)}Q", *offsets) + b"".join(chunks))
+
+
+def smooth_image(rng, W: int, H: int) -> np.ndarray:
+    """uint8 (H, W, 3): a bicubic-upsampled 6 x 8 colour field plus noise."""
+    from PIL import Image
+
+    coarse = rng.uniform(0, 255, (6, 8, 3)).astype(np.uint8)
+    img = np.asarray(Image.fromarray(coarse).resize((W, H), Image.BICUBIC), np.float32)
+    return np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+
+
+def capture_poses(n: int) -> list:
+    """Camera-to-world poses of a camera sliding along x, turning about y."""
+    poses = []
+    for i in range(n):
+        a = 0.02 * i
+        pose = np.eye(4)
+        pose[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        pose[:3, 3] = [0.05 * i, 0.0, 0.0]
+        poses.append(pose)
+    return poses
+
+
+def write_colmap_capture(scene: str, seed: int = SEED) -> dict:
+    """A DL3DV-style capture under ``scene``: ``images_8/frame_XXXXX.png``
+    (COLMAP_FRAMES seeded frames), the sparse model in ``colmap/sparse/0``
+    (one PINHOLE camera; COLMAP_POINTS points3D on a surface 2-6 m away, each
+    seen in 2-6 of the frames it projects into, plus unmatched keypoints),
+    written by the port's `data/colmap.py`, and the geometric depth bins in
+    ``colmap/dense/stereo/depth_maps`` at COLMAP_DENSE_SIZE, written by
+    `preprocess/dense.py::write_colmap_array` (a few invalid and too-far
+    pixels).  Returns the model and the dense depths."""
+    from PIL import Image
+
+    from iggt_official_tpu_torch.data.colmap import Camera, Image as ColmapImage, Point3D
+    from iggt_official_tpu_torch.data.colmap import rotmat2qvec, write_model
+    from iggt_official_tpu_torch.preprocess.dense import write_colmap_array
+
+    W, H = COLMAP_SIZE
+    rng = np.random.default_rng(seed)
+    f = 0.9 * W
+    cam = Camera(1, "PINHOLE", W, H, np.array([f, f, W / 2, H / 2]))
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
+    poses = capture_poses(COLMAP_FRAMES)
+    xyz = np.stack([rng.uniform(-1.5, 2.6, COLMAP_POINTS), rng.uniform(-0.9, 0.9, COLMAP_POINTS),
+                    rng.uniform(2.0, 6.0, COLMAP_POINTS)], 1)
+    visible = np.zeros((COLMAP_POINTS, COLMAP_FRAMES), bool)
+    uvs = np.zeros((COLMAP_POINTS, COLMAP_FRAMES, 2))
+    for i, pose in enumerate(poses):
+        c = (xyz - pose[:3, 3]) @ pose[:3, :3]          # world -> camera
+        uv = (c @ K.T)[:, :2] / c[:, 2:]
+        visible[:, i] = (c[:, 2] > 0.1) & (uv >= 0).all(1) & (uv < [W, H]).all(1)
+        uvs[:, i] = uv
+    # each point keeps 2-6 of the frames it projects into, drawn from the seed
+    keys = np.where(visible, rng.random(visible.shape), np.inf)
+    rank = np.argsort(np.argsort(keys, axis=1), axis=1)
+    keep = visible & (rank < rng.integers(2, 7, COLMAP_POINTS)[:, None])
+    obs = {i: (uvs[keep[:, i], i], np.nonzero(keep[:, i])[0] + 1) for i in range(COLMAP_FRAMES)}
+    # point p's track: (image id, index of its observation in that image)
+    slot = np.cumsum(keep, axis=0) - 1
+    tracks = [[(i + 1, int(slot[p, i])) for i in np.nonzero(keep[p])[0]]
+              for p in range(COLMAP_POINTS)]
+    images = {}
+    os.makedirs(os.path.join(scene, "images_8"))
+    for i, pose in enumerate(poses):
+        name = f"frame_{i + 1:05d}.png"
+        Image.fromarray(smooth_image(rng, W, H)).save(os.path.join(scene, "images_8", name))
+        xys, ids = obs[i]
+        extra = rng.uniform(0, [W, H], (50, 2))           # unmatched keypoints
+        xys = np.concatenate([xys, extra])
+        ids = np.concatenate([ids.astype(np.int64), -np.ones(50, np.int64)])
+        R = pose[:3, :3].T
+        images[i + 1] = ColmapImage(i + 1, rotmat2qvec(R), -R @ pose[:3, 3], 1, name, xys, ids)
+    points = {p + 1: Point3D(p + 1, xyz[p], rng.integers(0, 256, 3), float(rng.uniform(0, 2)),
+                             np.array([t[0] for t in tracks[p]]),
+                             np.array([t[1] for t in tracks[p]]))
+              for p in range(COLMAP_POINTS) if tracks[p]}
+    model = os.path.join(scene, "colmap", "sparse", "0")
+    write_model({1: cam}, images, points, model, ext=".bin")
+    write_model({1: cam}, images, points, model, ext=".txt")
+    dense = os.path.join(scene, "colmap", "dense", "stereo", "depth_maps")
+    os.makedirs(dense)
+    w, h = COLMAP_DENSE_SIZE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    depths = {}
+    for i in range(COLMAP_FRAMES):
+        d = (4.0 + np.sin(yy / h * 3 + 0.1 * i) + 0.5 * np.cos(xx / w * 4)).astype(np.float32)
+        d[rng.integers(0, h, 40), rng.integers(0, w, 40)] = 0.0
+        d[rng.integers(0, h, 10), rng.integers(0, w, 10)] = -1.0
+        d[rng.integers(0, h, 10), rng.integers(0, w, 10)] = 900.0
+        name = images[i + 1].name
+        write_colmap_array(d, os.path.join(dense, name + ".geometric.bin"))
+        depths[name] = d
+    return {"cameras": {1: cam}, "images": images, "points": points, "dense": depths,
+            "model": model}
+
+
+def models_equal(a, b) -> bool:
+    """Two (cameras, images, points) triples hold the same values."""
+    def same(x, y):
+        return all(np.array_equal(np.asarray(u), np.asarray(v)) if isinstance(u, np.ndarray)
+                   or isinstance(v, np.ndarray) else u == v for u, v in zip(x, y))
+
+    return all(a[k].keys() == b[k].keys() and all(same(a[k][i], b[k][i]) for i in a[k])
+               for k in range(3))
+
+
+def check_colmap_capture(tmp: str, times: dict) -> tuple:
+    """The COLMAP / DL3DV path: capture -> `dl3dv.process_scene` ->
+    `convert_colmap_scene` -> a half-size copy through `edit_resolution`.
+    Returns (ok, the converted scene's root)."""
+    import shutil
+
+    from PIL import Image
+
+    from iggt_official_tpu_torch.data import colmap
+    from iggt_official_tpu_torch.data.imread import imread_unchanged
+    from iggt_official_tpu_torch.preprocess import convert_colmap_scene
+    from iggt_official_tpu_torch.preprocess.dl3dv import process_scene, scale_colmap_cameras
+    from iggt_official_tpu_torch.preprocess.edit_resolution import edit_scene_resolution
+
+    ok = True
+    scene = os.path.join(tmp, "dl3dv", "scene0")
+    t0 = time.perf_counter()
+    cap = write_colmap_capture(scene)
+    times["write COLMAP capture (frames, model .bin + .txt, dense bins)"] = time.perf_counter() - t0
+    want = (cap["cameras"], cap["images"], cap["points"])
+    n_obs = sum(len(im.point3D_ids) for im in cap["images"].values())
+    t0 = time.perf_counter()
+    read_bin = colmap.read_model(cap["model"], ".bin")
+    read_txt = colmap.read_model(cap["model"], ".txt")
+    times["read the model (.bin and .txt)"] = time.perf_counter() - t0
+    again = os.path.join(tmp, "dl3dv", "rewrite")
+    colmap.write_model(*read_bin, again, ext=".bin")
+    rewrite_equal = all(
+        open(os.path.join(cap["model"], f), "rb").read() == open(os.path.join(again, f), "rb").read()
+        for f in ("cameras.bin", "images.bin", "points3D.bin"))
+    bin_equal, txt_equal = models_equal(want, read_bin), models_equal(want, read_txt)
+    log(f"[data] COLMAP model: {len(cap['points'])} points3D, {n_obs} 2-D observations over "
+        f"{COLMAP_FRAMES} images {COLMAP_SIZE[0]}x{COLMAP_SIZE[1]}; read back equal: .bin "
+        f"{bin_equal}, .txt {txt_equal}; .bin rewritten byte-equal {rewrite_equal}")
+    ok &= bin_equal and txt_equal and rewrite_equal
+
+    t0 = time.perf_counter()
+    n = process_scene(scene)
+    times["dl3dv.process_scene (dense bins -> npy)"] = time.perf_counter() - t0
+    W, H = COLMAP_SIZE
+    npy_ok = n == COLMAP_FRAMES
+    depth_maps = {}
+    for name, d in cap["dense"].items():
+        got = np.load(os.path.join(scene, "depths", name.replace(".png", ".npy")))
+        up = np.repeat(np.repeat(d, 2, 0), 2, 1)          # nearest, 2x in each axis
+        ref = np.where(up <= 0, 0.0, np.clip(up, 0.0, 500.0)).astype(np.float32)
+        npy_ok &= got.shape == (H, W) and got.dtype == np.float32 and np.array_equal(got, ref)
+        depth_maps[name] = got
+    log(f"[data] dl3dv.process_scene: {n} depth npy at {W}x{H} from {COLMAP_DENSE_SIZE[0]}x"
+        f"{COLMAP_DENSE_SIZE[1]} bins, each equal to the nearest 2x upsample clamped to "
+        f"[0, 500] with invalid pixels 0: {npy_ok}")
+    ok &= npy_ok
+
+    root = os.path.join(tmp, "converted")
+    t0 = time.perf_counter()
+    n = convert_colmap_scene(cap["model"], os.path.join(scene, "images_8"),
+                             os.path.join(root, "scans"), "seq0", depth_maps=depth_maps)
+    times["convert_colmap_scene (color, depth PNG, cam npz)"] = time.perf_counter() - t0
+    seq = os.path.join(root, "scans", "seq0")
+    conv_ok = n == COLMAP_FRAMES
+    pose_err = 0.0
+    for i, im in enumerate(sorted(cap["images"].values(), key=lambda im: im.name)):
+        png = imread_unchanged(os.path.join(seq, "depth", f"{i:06d}.png"))
+        mm = np.clip(depth_maps[im.name] * 1000, 0, 65535).astype(np.uint16)
+        cam = np.load(os.path.join(seq, "cam", f"{i:06d}.npz"))
+        w2c = np.eye(4)
+        w2c[:3, :3], w2c[:3, 3] = colmap.qvec2rotmat(im.qvec), im.tvec
+        pose_err = max(pose_err, float(np.abs(cam["pose"] - np.linalg.inv(w2c)).max()))
+        K = np.array([[0.9 * W, 0, W / 2], [0, 0.9 * W, H / 2], [0, 0, 1]], np.float32)
+        color_equal = (np.asarray(Image.open(os.path.join(seq, "color", f"{i:06d}.png")))
+                       == np.asarray(Image.open(os.path.join(scene, "images_8", im.name)))).all()
+        conv_ok &= (png.dtype == np.uint16 and np.array_equal(png, mm)
+                    and np.array_equal(cam["intrinsics"], K) and bool(color_equal))
+    conv_ok &= pose_err <= 1e-6
+    log(f"[data] convert_colmap_scene: {n} frames; depth PNGs equal to "
+        f"clip(d * 1000, 0, 65535) as uint16, intrinsics and colour equal, poses the inverse "
+        f"of the written world-to-camera within {pose_err:.3g} (limit 1e-6): {conv_ok}")
+    ok &= conv_ok
+
+    half = os.path.join(tmp, "dl3dv", "scene0_half")
+    shutil.copytree(scene, half)
+    for name in os.listdir(os.path.join(half, "images_8")):
+        p = os.path.join(half, "images_8", name)
+        Image.open(p).resize((W // 2, H // 2), Image.BILINEAR).save(p)
+    t0 = time.perf_counter()
+    edited = edit_scene_resolution(half)
+    times["edit_resolution (half size)"] = time.perf_counter() - t0
+    got = colmap.read_cameras_binary(os.path.join(half, "colmap", "sparse", "0", "cameras.bin"))
+    ratio = scale_colmap_cameras(cap["cameras"], W // 2, H // 2)
+    p = cap["cameras"][1].params
+    rule = np.array([p[0] * 0.5, p[1] * 0.5, p[2] * 0.5, p[3] * 0.5])
+    edit_ok = (edited and not edit_scene_resolution(half)
+               and (got[1].width, got[1].height) == (W // 2, H // 2)
+               and np.array_equal(got[1].params, ratio[1].params)
+               and np.array_equal(got[1].params, rule))
+    log(f"[data] edit_resolution to {W // 2}x{H // 2} on a copy: params {got[1].params.tolist()} "
+        f"equal to the ratio rule (scale_colmap_cameras and fx, cx by w'/w, fy, cy by h'/h), "
+        f"a second call skipped: {edit_ok}")
+    ok &= bool(edit_ok)
+    return ok, root
+
+
+def exr_depth(rng, W: int, H: int, i: int) -> np.ndarray:
+    """A depth field 2-80 m with a few infinite (sky) and zero pixels."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    d = (20 + 15 * np.sin(yy / H * 3 + 0.3 * i) + 10 * np.cos(xx / W * 5)
+         + rng.uniform(0, 0.5, (H, W))).astype(np.float32)
+    d[:H // 40] = np.inf
+    d[rng.integers(0, H, 100), rng.integers(0, W, 100)] = 0.0
+    return d
+
+
+def write_exr_scenes(tmp: str, seed: int = SEED):
+    """EXR_FRAMES frames at EXR_SIZE in MvsSynth's layout
+    (``mvs/scans/seq0/{color,depth,cam}``) and in MegaDepth's
+    (``megadepth/scans/0000/dense0/{rgb,depth}``, the npz cameras in rgb/),
+    the depths in EXR_ENCODINGS' pixel types and compressions, cycled.
+    Returns the written depths as the files hold them (HALF rounded)."""
+    from PIL import Image
+
+    W, H = EXR_SIZE
+    rng = np.random.default_rng(seed + 1)
+    K = np.array([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]], np.float32)
+    held = {"mvs": [], "megadepth": []}
+    layouts = {"mvs": ("mvs/scans/seq0/color", "mvs/scans/seq0/depth", "mvs/scans/seq0/cam"),
+               "megadepth": ("megadepth/scans/0000/dense0/rgb",
+                             "megadepth/scans/0000/dense0/depth",
+                             "megadepth/scans/0000/dense0/rgb")}
+    for kind, dirs in layouts.items():
+        for d in dirs:
+            os.makedirs(os.path.join(tmp, d), exist_ok=True)
+        for i, pose in enumerate(capture_poses(EXR_FRAMES)):
+            Image.fromarray(smooth_image(rng, W, H)).save(
+                os.path.join(tmp, dirs[0], f"{i:05d}.jpg"), quality=95)
+            pixel, comp = EXR_ENCODINGS[i % len(EXR_ENCODINGS)]
+            d = exr_depth(rng, W, H, i)
+            write_exr(os.path.join(tmp, dirs[1], f"{i:05d}.exr"), {"Y": d}, pixel, comp)
+            held[kind].append(d.astype(EXR_PIXEL[pixel][1]).astype(np.float32))
+            key = "pose" if kind == "mvs" else "cam2world"
+            np.savez(os.path.join(tmp, dirs[2], f"{i:05d}.npz"),
+                     **{key: pose.astype(np.float32), "intrinsics": K})
+    return held
+
+
+def exr_datasets(tmp: str):
+    """The registered MvsSynth and MegaDepth loaders over write_exr_scenes'
+    files at TRAIN_RESOLUTION, their 24-frame minimum lowered to the
+    EXR_FRAMES written."""
+    from iggt_official_tpu_torch.data.datasets import MegaDepth, MvsSynth
+
+    short = {"min_frames": EXR_FRAMES}
+    mvs = type("MvsSynth", (MvsSynth,), short)(os.path.join(tmp, "mvs"), dset="scans",
+                                                 resolution=TRAIN_RESOLUTION, seed=SEED)
+    mega = type("MegaDepth", (MegaDepth,), short)(os.path.join(tmp, "megadepth"),
+                                                   dset="scans", resolution=TRAIN_RESOLUTION,
+                                                   seed=SEED)
+    return mvs, mega
+
+
+def check_exr_scenes(tmp: str, times: dict) -> bool:
+    from iggt_official_tpu_torch.data.base import threshold_depth_map
+    from iggt_official_tpu_torch.data.imread import imread_unchanged
+
+    t0 = time.perf_counter()
+    held = write_exr_scenes(tmp)
+    times[f"write {2 * EXR_FRAMES} EXR frames {EXR_SIZE[0]}x{EXR_SIZE[1]} (+ JPEG, npz)"] = \
+        time.perf_counter() - t0
+    ok = True
+    for ds, want in zip(exr_datasets(tmp), (held["mvs"], held["megadepth"])):
+        label = ds.dataset_label
+        t0 = time.perf_counter()
+        raws = [imread_unchanged(p) for p in ds.all_depth_paths]
+        times[f"{label}: read {len(raws)} EXR depths"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        views = ds[(0, 0, EXR_FRAMES)]
+        times[f"{label}: load {len(views)} views (EXR read, threshold, crop)"] = \
+            time.perf_counter() - t0
+        raw_ok = len(raws) == EXR_FRAMES and all(
+            r.dtype == np.float32 and r.shape == w.shape and np.array_equal(r, w)
+            for r, w in zip(raws, want))
+        thr_ok = True
+        for i, w in enumerate(want):
+            w = w.copy()
+            w[~np.isfinite(w)] = 0
+            thr_ok &= np.array_equal(ds._load_depth_for(i),
+                                     threshold_depth_map(w, ds.depth_percentile, -1))
+        shapes_ok = all(v["img"].shape[:2] == (TRAIN_RESOLUTION[1], TRAIN_RESOLUTION[0])
+                        and np.isfinite(v["depthmap"]).all() for v in views)
+        log(f"[data] {label}: {len(raws)} EXR depths "
+            + ", ".join(f"{p}/{c}" for p, c in EXR_ENCODINGS[:EXR_FRAMES])
+            + f" at {EXR_SIZE[0]}x{EXR_SIZE[1]} read equal to the written arrays (HALF after "
+            f"its float32 conversion): {raw_ok}; the loader's depth equal to its threshold of "
+            f"them: {thr_ok}; {len(views)} views at {TRAIN_RESOLUTION}, finite: {shapes_ok}")
+        ok &= raw_ok and thr_ok and shapes_ok
+    return ok
+
+
+def ellipse_mask(rng, W: int, H: int) -> np.ndarray:
+    cy, cx = rng.uniform(0, H), rng.uniform(0, W)
+    ry, rx = rng.uniform(H / 80, H / 4), rng.uniform(W / 80, W / 4)
+    y0, y1 = max(0, int(cy - ry) - 1), min(H, int(cy + ry) + 2)
+    x0, x1 = max(0, int(cx - rx) - 1), min(W, int(cx + rx) + 2)
+    yy, xx = np.ogrid[y0:y1, x0:x1]
+    m = np.zeros((H, W), bool)
+    m[y0:y1, x0:x1] = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+    return m
+
+
+def write_sa1b_shard(path: str, seed: int = SEED) -> list:
+    """SA1B_ROWS rows of (key, COCO-JSON annotations, base64 JPEG) at
+    SA1B_SIZE, SA1B_MASKS ellipse masks each as compressed COCO RLE (the
+    port's `data/rle.py`).  Returns [(key, json text, base64, masks)]."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    from iggt_official_tpu_torch.data import rle
+
+    W, H = SA1B_SIZE
+    rng = np.random.default_rng(seed + 2)
+    rows = []
+    with open(path, "w") as f:
+        for i in range(SA1B_ROWS):
+            buf = io.BytesIO()
+            Image.fromarray(smooth_image(rng, W, H)).save(buf, format="JPEG", quality=90)
+            b64 = base64.b64encode(buf.getvalue()).decode("ascii")
+            masks, annos = [], []
+            for k in range(SA1B_MASKS):
+                m = ellipse_mask(rng, W, H)
+                ys, xs = np.nonzero(m)
+                j = int(rng.integers(0, len(ys)))
+                annos.append({"id": k, "segmentation": rle.encode(m), "area": int(m.sum()),
+                              "bbox": [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                                       int(ys.max() - ys.min() + 1)],
+                              "point_coords": [[float(xs[j]), float(ys[j])]], "iscrowd": 0})
+                masks.append(m)
+            text = json.dumps({"image": {"image_id": i, "height": H, "width": W},
+                               "annotations": annos})
+            f.write(f"sa1b_{i}\t{text}\t{b64}\n")
+            rows.append((f"sa1b_{i}", text, b64, masks))
+    return rows
+
+
+def write_entityseg(root: str, seed: int = SEED) -> list:
+    """ENTITY_IMAGES JPEGs at SA1B_SIZE and a COCO JSON of ENTITY_POLYGONS
+    rectangle polygons each (integer corners, so each mask is known:
+    corners included).  Returns each image's list of masks."""
+    from PIL import Image
+
+    W, H = SA1B_SIZE
+    rng = np.random.default_rng(seed + 3)
+    os.makedirs(os.path.join(root, "images"))
+    coco, masks = {"images": [], "annotations": []}, []
+    for i in range(ENTITY_IMAGES):
+        Image.fromarray(smooth_image(rng, W, H)).save(
+            os.path.join(root, "images", f"{i:04d}.jpg"), quality=90)
+        coco["images"].append({"id": i + 1, "file_name": f"{i:04d}.jpg", "height": H, "width": W})
+        ms = []
+        for k in range(ENTITY_POLYGONS):
+            x0, y0 = int(rng.integers(0, W * 9 // 10)), int(rng.integers(0, H * 9 // 10))
+            x1, y1 = x0 + int(rng.integers(2, W // 10)), y0 + int(rng.integers(2, H // 10))
+            poly = [float(v) for v in (x0, y0, x1, y0, x1, y1, x0, y1)]
+            coco["annotations"].append({"id": len(coco["annotations"]) + 1, "image_id": i + 1,
+                                        "segmentation": [poly], "iscrowd": 0})
+            m = np.zeros((H, W), bool)
+            m[y0:y1 + 1, x0:x1 + 1] = True
+            ms.append(m)
+        masks.append(ms)
+    with open(os.path.join(root, "entityseg.json"), "w") as f:
+        json.dump(coco, f)
+    return masks
+
+
+def check_mask_sets(tmp: str, times: dict) -> bool:
+    """An SA-1B shard through `TSVFile` and `SA1BDataset`, an EntitySeg set
+    through `EntityImage`."""
+    from iggt_official_tpu_torch.data import rle
+    from iggt_official_tpu_torch.data.seg2d import EntityImage, decode_segmentation
+    from iggt_official_tpu_torch.data.tsv import SA1BDataset, TSVFile, img_from_base64
+
+    ok = True
+    root = os.path.join(tmp, "sa1b")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    rows = write_sa1b_shard(os.path.join(root, "sa_000000_0.tsv"))
+    times[f"write the SA-1B shard ({SA1B_ROWS} rows)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tsv = TSVFile(os.path.join(root, "sa_000000_0.tsv"))
+    order = [3, 0, 2, 1][:SA1B_ROWS]
+    seek_ok = tsv.num_rows() == SA1B_ROWS and all(
+        tsv.seek(i) == list(rows[i][:3]) for i in order)
+    W, H = SA1B_SIZE
+    dec_ok = True
+    for key, text, b64, masks in rows:
+        annos = json.loads(text)["annotations"]
+        dec_ok &= img_from_base64(b64).size == (W, H)
+        for a, m in zip(annos, masks):
+            got = decode_segmentation(a["segmentation"], H, W)
+            dec_ok &= np.array_equal(got, rle.decode(a["segmentation"]) > 0) and \
+                np.array_equal(got, m)
+    times["TSV seeks and mask decodes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = SA1BDataset(root, image_size=SA1B_IMAGE_SIZE, seed=SEED)
+    item = ds[0]
+    times[f"SA1BDataset sample at {SA1B_IMAGE_SIZE}"] = time.perf_counter() - t0
+    S, n = SA1B_IMAGE_SIZE, len(item["gt_masks"])
+    shapes = {"image": ((S, S, 3), np.float32), "sam_image": ((S, S, 3), np.float32),
+              "padding_mask": ((S, S), np.bool_), "gt_masks": ((n, S, S), np.bool_),
+              "gt_boxes": ((n, 4), np.float32), "point_coords": ((n, 4), np.float32)}
+    sample_ok = len(ds) == SA1B_ROWS and 0 < n <= SA1B_MASKS and all(
+        item[k].shape == s and item[k].dtype == dt for k, (s, dt) in shapes.items())
+    log(f"[data] SA-1B shard: {SA1B_ROWS} rows of a {W}x{H} JPEG and {SA1B_MASKS} RLE masks; "
+        f"rows seek back equal {seek_ok}; masks decode equal to the written masks and to "
+        f"rle.decode {dec_ok}; SA1BDataset at {S}: {n} instances, shapes "
+        + ", ".join(f"{k} {tuple(item[k].shape)}" for k in shapes) + f" as stated: {sample_ok}")
+    ok &= seek_ok and dec_ok and sample_ok
+
+    eroot = os.path.join(tmp, "entityseg")
+    t0 = time.perf_counter()
+    emasks = write_entityseg(eroot)
+    ds = EntityImage(os.path.join(eroot, "images"), os.path.join(eroot, "entityseg.json"),
+                     resolution=SA1B_IMAGE_SIZE, seed=SEED)
+    poly_ok = len(ds) == ENTITY_IMAGES
+    for image_id, ms in zip(ds.ids, emasks):
+        for a, m in zip(ds.anns_by_image[image_id], ms):
+            poly_ok &= np.array_equal(decode_segmentation(a["segmentation"], H, W), m)
+    item = ds[0]
+    ids = np.unique(item["instance_ids"])
+    ent_ok = (poly_ok and item["img"].shape == (S, S, 3) and item["instance_ids"].shape == (S, S)
+              and ids.min() >= 0 and ids.max() <= ENTITY_POLYGONS and len(ids) > 1)
+    times["EntitySeg write, polygon decodes, one sample"] = time.perf_counter() - t0
+    log(f"[data] EntitySeg: {ENTITY_IMAGES} images {W}x{H}, {ENTITY_POLYGONS} polygons each, "
+        f"each decoding to its rectangle {poly_ok}; EntityImage at {S}: img "
+        f"{item['img'].shape}, instance_ids {item['instance_ids'].shape} with {len(ids) - 1} "
+        f"instances: {ent_ok}")
+    return ok and ent_ok
+
+
+CONFIG_TEXTS = {
+    "base.yaml": "# base\nMODEL:\n  DEPTH: 24\n  DIM: 1024\n  HEADS: [16, 16]\n"
+                 "SOLVER:\n  LR: 1.0e-4\n  STEPS: [1000, 2000]\n  AMP: true\n"
+                 "DATA:\n  NAME: 'dl3dv'\n  ROOT: ~\n",
+    "exp.yaml": "_BASE_: base.yaml\nMODEL:\n  DEPTH: 12\nDATA:\n  ROOT: \"/data/x\"\n"
+                "  SETS:\n  - Dl3dv\n  - MvsSynth\n",
+    "a.yaml": "model.depth: 4\nmodel.dim: 64\nlr: 0.1\ndata: {name: sa1b, size: 1024}\n",
+    "b.yaml": "model.depth: 8\nflags: [yes, off]\n",
+}
+CONFIG_WANT = (
+    {"MODEL": {"DEPTH": 12, "DIM": 1024, "HEADS": [16, 16]},
+     "SOLVER": {"LR": 1.0e-4, "STEPS": [1000, 2000], "AMP": True},
+     "DATA": {"NAME": "dl3dv", "ROOT": "/data/x", "SETS": ["Dl3dv", "MvsSynth"]}},
+    {"model": {"depth": 16, "dim": 64}, "lr": 0.1, "data": {"name": "sa1b", "size": 1024},
+     "flags": [True, False], "seed": 7},
+)
+
+
+def check_configs(tmp: str, times: dict) -> bool:
+    """A `_BASE_` chain through `CfgNode.load_yaml_with_base`, two dot-keyed
+    files plus overrides through `load_opt_from_config_files`, on the
+    port's YAML subset reader (PyYAML is not a dependency of the port)."""
+    from iggt_official_tpu_torch.utils.arguments import load_config_dict_to_opt
+    from iggt_official_tpu_torch.utils.arguments import load_opt_from_config_files
+    from iggt_official_tpu_torch.utils.config_io import CfgNode
+
+    root = os.path.join(tmp, "configs")
+    os.makedirs(root)
+    for name, text in CONFIG_TEXTS.items():
+        with open(os.path.join(root, name), "w") as f:
+            f.write(text)
+    t0 = time.perf_counter()
+    cfg = CfgNode.load_yaml_with_base(os.path.join(root, "exp.yaml")).to_dict()
+    opt = load_opt_from_config_files([os.path.join(root, "a.yaml"), os.path.join(root, "b.yaml")])
+    load_config_dict_to_opt(opt, {"model.depth": 16, "seed": 7})
+    times["config loads"] = time.perf_counter() - t0
+    ok = cfg == CONFIG_WANT[0] and opt == CONFIG_WANT[1]
+    log(f"[data] configs: _BASE_ chain {cfg}; dot-keyed files + overrides {opt}; equal to the "
+        f"literal dicts: {ok}")
+    return ok
+
+
+def run_data(tmp: str) -> tuple:
+    """Phase 10 in ``tmp``; returns (ok, the converted COLMAP scene's root)."""
+    times = {}
+    t0 = time.perf_counter()
+    ok, converted = check_colmap_capture(tmp, times)
+    ok &= check_exr_scenes(tmp, times)
+    ok &= check_mask_sets(tmp, times)
+    ok &= check_configs(tmp, times)
+    total = time.perf_counter() - t0
+    for k, v in times.items():
+        log(f"[data]   host {v:8.3f} s  {k}")
+    log(f"[data] phase {total:.1f} s of host time: {'ok' if ok else 'FAIL'}")
+    return ok, converted
 
 
 def build_all() -> None:
@@ -3800,7 +4490,7 @@ def build_all() -> None:
 
 
 def main(phases=("device", "build", "kernels", "agreement", "postproc", "requests",
-                 "batch_eval", "sam2", "sam2_video", "train")) -> int:
+                 "batch_eval", "sam2", "sam2_video", "data", "train")) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -3854,8 +4544,17 @@ def main(phases=("device", "build", "kernels", "agreement", "postproc", "request
     if "sam2_video" in phases:
         ok &= check_video_agreement()
         ok &= run_sam2_video(launches)
-    if "train" in phases:
-        ok &= run_train(launches)
+    with tempfile.TemporaryDirectory(prefix="iggt_data_") as tmp:
+        if "data" in phases or "train" in phases:
+            # the train phase steps on this phase's scenes, so it runs it too
+            t0 = time.perf_counter()
+            data_ok, converted = run_data(tmp)
+            log(f"[data] phase {time.perf_counter() - t0:.1f} s of wall time")
+            ok &= data_ok
+        if "train" in phases:
+            t0 = time.perf_counter()
+            ok &= run_train(launches, {"tmp": tmp, "converted": converted})
+            log(f"[train] phase {time.perf_counter() - t0:.1f} s of wall time")
 
     summary = kernels_summary(results, launches, extra) if results else []
     log(json.dumps({"kernels": summary}))

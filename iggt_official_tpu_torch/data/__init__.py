@@ -6,8 +6,10 @@ dataset contract, crop / rescale with intrinsics updates and covisibility
 ranking, the named dataset registry (`datasets.DATASETS`), and
 `get_data_loader`, a thread-prefetching iterator of numpy batches that the
 training loop (`train/loop.py`) moves to the card.  Images are HWC float32
-in [0, 1], the model's layout.  Not ported yet (ROADMAP A7b): `seg2d.py`,
-`tsv.py`, `colmap.py`.
+in [0, 1], the model's layout.  The 2-D mask sets (`seg2d.py`: COCO-JSON
+entity masks and SAV masklets; `tsv.py`: SA-1B TSV shards) and the COLMAP
+model IO (`colmap.py`) sit beside them; the converters from raw captures
+to the scene layout are `iggt_official_tpu_torch/preprocess/`.
 """
 
 from iggt_official_tpu_torch.data.base import BaseViewDataset

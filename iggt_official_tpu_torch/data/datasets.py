@@ -6,8 +6,8 @@ The cv2 reads become `data/imread.py`'s PIL decoders, byte-equal to cv2's
 (Kubric's 16-bit depth PNG, ``IMREAD_UNCHANGED``; MapFree's sky-mask JPEG,
 ``IMREAD_GRAYSCALE``; Vkitti's depth PNG, ``IMREAD_ANYCOLOR |
 IMREAD_ANYDEPTH``); the EXR-depth loaders (MegaDepth, MvsSynth, Waymo,
-Habitat, Replica) raise an ImportError that names cv2 when they read a
-frame.  The reference ships ~30 per-dataset loader files that all follow the
+Habitat, Replica) read through `data/imread.py::read_exr` (single-part
+scanline OpenEXR, NONE / ZIPS / ZIP, HALF / FLOAT).  The reference ships ~30 per-dataset loader files that all follow the
 SceneDirDataset pattern, differing in directory layout, file extensions,
 depth encodings, camera containers and pose conventions (see each class's
 note); `DATASETS` is the name -> class registry that `get_data_loader`'s

@@ -2,8 +2,8 @@
 
 Counterpart of `iggt_official_tpu/data/scene_dataset.py`, copied, with the
 depth PNGs decoded by PIL (`data/imread.py`, byte-equal to cv2's
-``IMREAD_UNCHANGED``) instead of cv2; EXR depth raises an ImportError that
-names cv2.  The shipped per-dataset loaders of the reference all follow one
+``IMREAD_UNCHANGED``) instead of cv2, and EXR depth by the port's own
+OpenEXR reader (`data/imread.py::read_exr`).  The shipped per-dataset loaders of the reference all follow one
 pattern -- scan sequence dirs, load per-frame pose npz + 16-bit depth PNG +
 RGB, rank frames by extrinsic covisibility, and at `_get_views` time return
 the anchor plus sampled top-k covisible frames.  `SceneDirDataset`

@@ -215,13 +215,25 @@ def _python_sources():
 # card machine runs imports them.
 LAZY_IMPORTS = {("sam2/video_io.py", "decode_video_frames", "cv2"),
                 ("ops/cluster.py", "cluster_features_to_masks", "sklearn"),
-                ("eval/trajectory.py", "plot_trajectory", "matplotlib")}
+                ("eval/trajectory.py", "plot_trajectory", "matplotlib"),
+                # the converters' optional toolkits, imported where they are used
+                ("preprocess/ase.py", "aria_export_to_scannet", "projectaria_tools"),
+                ("preprocess/habitat.py", "render_environment_map", "habitat_sim"),
+                # imported inside functions, as the JAX package does
+                ("preprocess/arkitscenes.py", "_rotvec_to_matrix", "scipy"),
+                ("preprocess/arkitscenes.py", "convert_scene", "PIL"),
+                ("preprocess/blendedmvs.py", "convert_view", "PIL"),
+                ("preprocess/dl3dv.py", "process_scene", "PIL"),
+                ("preprocess/edit_resolution.py", "first_image_size", "PIL"),
+                ("data/seg2d.py", "_polygon_to_mask", "PIL"),
+                ("utils/visualizer.py", "_draw_label", "PIL")}
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    # nor sklearn, matplotlib or cv2, which the card machine does not have,
-    # outside LAZY_IMPORTS
-    banned = ("jax", "jaxlib", "flax", "iggt_official_tpu", "sklearn", "matplotlib", "cv2")
+    # nor sklearn, matplotlib, cv2 or yaml, which the card machine does not
+    # have, nor the converters' optional toolkits, outside LAZY_IMPORTS
+    banned = ("jax", "jaxlib", "flax", "iggt_official_tpu", "sklearn", "matplotlib", "cv2",
+              "yaml", "projectaria_tools", "habitat_sim")
     pkg = op.join(REPO, "iggt_official_tpu_torch")
     sources = list(_python_sources())
     assert len(sources) > 20
