@@ -70,9 +70,9 @@ order; any failure exits non-zero:
    on synthetic seeded scenes: 3 views at 504x336 (with seeded ground truth,
    so it evaluates), 8 views at 504x336 and 8 views at 518x518, each writing
    the demo's whole file set (npz, masks, PCA, depth_vis, three GLBs, the
-   evaluation report).  Each prints the median wall time and views/s of three
-   requests, of three bare forwards and of three post-processings (after a
-   warm-up), peak memory, output shapes, ranges and finiteness, the clusters
+   evaluation report).  Each prints the wall time and views/s of one
+   request (after a warm-up), the median of three bare forwards and of
+   three post-processings, peak memory, output shapes, ranges and finiteness, the clusters
    found, the kernel launch counts of the first timed request (counts set to
    0 just before it), and the stages of one traced request (forward,
    post-processing stages, evaluation, writes, GLB export).  The 8x518
@@ -225,6 +225,24 @@ order; any failure exits non-zero:
    (`tests/torch_parallel_worker.py`: 2 data x 2 seq, 2 x 2 x 2 with tensor
    parallelism and the 2 x 4 ring, 4 x 1 with FSDP) on this machine's torch,
    against the port in one process.  The phase's wall time is printed.
+
+13. modules: the JAX package's last modules at full width, seeded weights.
+   `Block(1024, 16, ffn_layer="swiglu")` in bf16: a frame block with qk-norm
+   and RoPE on (8, 1374, 1024) and a global one on (1, 10992, 1024) (one
+   `flash_attention_fused` launch each), a DINOv2-style block without them
+   on (8, 1374, 1024) (one `flash_attention` launch), each against the same
+   block with `sdpa_plain` on the card at the bf16 trunk's limit, and the
+   frame and DINOv2 blocks on view 0 against the same block on the CPU; the
+   frame block with w12's halves swapped must fail that.  `GeoProjector(2048)`
+   on four seeded token maps of the 8x518 forward's shape, TF32 off, against
+   the CPU on views 0-1 (1e-5 relative); a level-0 ConvTranspose kernel left
+   unflipped must fail.  The 8x518 forward through `IGGTProcessor` with
+   `RuntimeConfig(use_flash_attention=False)`: no `flash_attention_fused`
+   launch, one `flash_attention` launch (the part head's cross-attention,
+   which keeps its dispatcher as in the JAX package), 72 `sdpa_plain` calls
+   (24 DINOv2, 24 frame, 24 global blocks), outputs within the bf16 trunk's
+   limit of the default forward's (48 + 25 launches); both forwards' wall
+   times are readings.  The phase's wall time is printed.
 
 The kernels phase also holds token merging's two launches at the merged
 8x518 global block: the q/k prep kernel alone (1, 10992, 16, 64) against
@@ -1515,6 +1533,12 @@ def kernels_summary(results, launches, extra):
             out[-1]["launches_parallel_from"] = (
                 "one full-width 8 x 518 forward on a one-rank NCCL mesh per global route "
                 "(parallel/attention.py)")
+        if kernel in ("flash_attention", "flash_attention_fused") and "modules" in launches:
+            out[-1]["launches_modules"] = {label: counts[kernel]
+                                           for label, counts in launches["modules"].items()}
+            out[-1]["launches_modules_from"] = (
+                "the modules phase: one call of each full-width SwiGLU block, and one 8 x 518 "
+                "forward through IGGTProcessor with RuntimeConfig(use_flash_attention=False)")
         if kernel in ("nn1", "bucket_topk"):
             out[-1]["max_abs_err_is"] = "index mismatches against the plain version"
         if kernel in LAUNCHES_FROM:
@@ -2093,9 +2117,9 @@ def global_route_ab(model, x, S: int) -> None:
 
 
 def timed_request(proc, scene, out_dir):
-    """Warm-up, then three requests: the first with the launch counts set to 0
-    just before and read just after, and its peak memory; returns (results
-    of the first, counts, peak GiB, median wall s)."""
+    """Warm-up, then one request with the launch counts set to 0 just before
+    and read just after, and its peak memory; returns (its results, counts,
+    peak GiB, wall s)."""
     import torch
 
     proc.process_scene(scene, out_dir)
@@ -2105,11 +2129,10 @@ def timed_request(proc, scene, out_dir):
     t = time.perf_counter()
     results = proc.process_scene(scene, out_dir)
     torch.cuda.synchronize()
-    walls = [time.perf_counter() - t]
+    wall = time.perf_counter() - t
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    walls += [wall_s(lambda: proc.process_scene(scene, out_dir)) for _ in range(2)]
-    return results, counts, peak, float(np.median(walls))
+    return results, counts, peak, wall
 
 
 def run_requests(launches_out: dict, extra: dict, phases=("batch_eval",)) -> bool:
@@ -4841,6 +4864,236 @@ def parallel_gloo_worlds() -> bool:
     return not problems
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the JAX package's last modules (SwiGLU blocks, GeoProjector,
+# RuntimeConfig.use_flash_attention=False)
+
+MODULES_VIEWS, MODULES_SIZE = 8, 518     # the 8 views 518x518 request's forward
+MODULE_BLOCKS = (
+    # (label, qk-norm and RoPE, over all views (global), the wrapper launched once)
+    ("frame swiglu block", True, False, "flash_attention_fused"),
+    ("global swiglu block", True, True, "flash_attention_fused"),
+    ("DINOv2-style swiglu block", False, False, "flash_attention"),
+)
+GEO_CPU_VIEWS = 2              # views of the GeoProjector the CPU side runs
+GEO_TOL = 1e-5                 # fp32, TF32 off: card and CPU differ in summation order
+# use_flash_attention=False: the part head's cross-attention keeps the
+# dispatcher (the JAX package's CrossAttention has no attn_fn from the model)
+NO_FLASH_LAUNCHES = {"flash_attention_fused": 0, "flash_attention": 1, "qk_prep": 0,
+                     "nn1": 0, "fused_ln": 0}
+
+
+def run_modules(launches_out: dict) -> bool:
+    import torch
+
+    counts = launches_out.setdefault("modules", {})
+    ok = swiglu_blocks(counts)
+    ok &= geo_projector()
+    with tempfile.TemporaryDirectory(prefix="iggt_modules_") as tmp:
+        ok &= forward_without_flash(tmp, counts)
+    torch.cuda.empty_cache()
+    return ok
+
+
+def swiglu_blocks(counts_out: dict) -> bool:
+    """Each `MODULE_BLOCKS` block (seeded weights, no LayerScale, bf16) through
+    the kernel dispatcher against `sdpa_plain` on the card; the frame and
+    DINOv2 blocks on view 0 against a CPU copy, where w12's halves swapped
+    must fail."""
+    import copy
+
+    import torch
+
+    from iggt_official_tpu_torch.config import ModelConfig
+    from iggt_official_tpu_torch.layers.blocks import Block, sdpa_plain
+    from iggt_official_tpu_torch.layers.rope import compute_rope_2d, make_patch_positions
+    from iggt_official_tpu_torch.ops.flash_attention import attention
+    from iggt_official_tpu_torch.utils.init import init_params
+
+    agg = ModelConfig().aggregator
+    tol = AGREEMENT_TOL["bfloat16"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grid = MODULES_SIZE // agg.patch_size
+    V, P = MODULES_VIEWS, agg.patch_start_idx + grid * grid
+    ok = True
+    for label, qk_rope, over_views, kernel in MODULE_BLOCKS:
+        shape = (1, V * P, agg.embed_dim) if over_views else (V, P, agg.embed_dim)
+        with torch.device("cuda"):
+            blk = Block(agg.embed_dim, agg.num_heads, qk_norm=qk_rope, ffn_layer="swiglu",
+                        dtype=torch.bfloat16, ln_eps=1e-5 if qk_rope else 1e-6,
+                        attn_fn=attention)
+        init_params(blk, gen)
+        blk.eval().requires_grad_(False)
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def rope_for(views, device):
+            if not qk_rope:
+                return None
+            pos = make_patch_positions(grid, grid, views, agg.patch_start_idx, device=device)
+            rope = compute_rope_2d(pos, agg.embed_dim // agg.num_heads, agg.rope_freq)
+            return rope.map(lambda t: t.reshape(1 if over_views else views, -1, t.shape[-1]))
+
+        rope = rope_for(V, "cuda")
+        with torch.inference_mode():
+            zero_counts()
+            out = blk(x, rope)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            plain = blk(x, rope, attn_fn=sdpa_plain)
+            err = rel_err(plain, out)
+            kernel_s = wall_s(lambda: blk(x, rope))
+            plain_s = wall_s(lambda: blk(x, rope, attn_fn=sdpa_plain))
+        want = {k: int(k == kernel) for k in counts}
+        good = counts == want and err <= tol and bool(torch.isfinite(out).all())
+        counts_out[label] = counts
+        line = (f"[modules] {label} {tuple(shape)} bf16: launches {counts} (want {want}); "
+                f"against sdpa_plain on the card max rel err {err:.3e} (limit {tol}, the bf16 "
+                f"trunk's); block {kernel_s * 1e3:.2f} ms through the kernel, "
+                f"{plain_s * 1e3:.2f} ms through sdpa_plain")
+        if not over_views:
+            cpu = copy.deepcopy(blk).cpu()
+            cpu_rope = rope_for(1, "cpu")
+            with torch.inference_mode():
+                ref = cpu(x[:1].cpu(), cpu_rope, attn_fn=sdpa_plain)
+                rope0 = rope_for(1, "cuda")
+                cpu_err = rel_err(ref, blk(x[:1], rope0))
+                good &= cpu_err <= tol
+                line += f"; view 0 against the CPU {cpu_err:.3e}"
+                if qk_rope:
+                    w, b = blk.mlp.w12.weight, blk.mlp.w12.bias
+                    h = w.shape[0] // 2
+                    saved = w.clone(), b.clone()
+                    w.copy_(torch.cat([w[h:], w[:h]]))
+                    b.copy_(torch.cat([b[h:], b[:h]]))
+                    fault_err = rel_err(ref, blk(x[:1], rope0))
+                    w.copy_(saved[0])
+                    b.copy_(saved[1])
+                    good &= fault_err > tol
+                    line += f"; planted fault (w12's halves swapped) {fault_err:.3e}, must fail"
+        ok &= good
+        log(line if good else line.replace("[modules] ", "[modules] FAIL ", 1))
+        del blk, x, out, plain
+        torch.cuda.empty_cache()
+    return ok
+
+
+def geo_projector() -> bool:
+    """`GeoProjector(2048)` (seeded weights) on four seeded bf16 token maps of
+    the 8x518 forward's shape, TF32 off, against the CPU on the first
+    `GEO_CPU_VIEWS` views; the level-0 ConvTranspose kernel left unflipped
+    must fail."""
+    import copy
+
+    import torch
+
+    from iggt_official_tpu_torch.config import ModelConfig
+    from iggt_official_tpu_torch.heads.adaptor import GeoProjector
+    from iggt_official_tpu_torch.utils.init import init_params
+
+    cfg = ModelConfig()
+    psi = cfg.aggregator.patch_start_idx
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    with torch.device("cuda"):
+        proj = GeoProjector(cfg.part.dim_in, cfg.patch_size,
+                            intermediate_layer_idx=cfg.part.intermediate_layer_idx,
+                            out_channels=cfg.part.out_channels)
+    init_params(proj, gen)
+    for p in proj.parameters():     # biases and the norm away from 0 and 1
+        if p.ndim == 1:
+            p.data.add_(0.1 * torch.randn(p.shape, generator=gen, device="cuda"))
+    g = MODULES_SIZE // cfg.patch_size
+    P, V, hw = psi + g * g, MODULES_VIEWS, (MODULES_SIZE, MODULES_SIZE)
+    tokens = [None] * cfg.aggregator.depth
+    for i in proj.intermediate_layer_idx:
+        tokens[i] = torch.randn((1, V, P, cfg.part.dim_in), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+    cpu = copy.deepcopy(proj).cpu()
+    with torch.inference_mode():
+        out = proj(tokens, hw, psi)
+        secs = wall_s(lambda: proj(tokens, hw, psi))
+        n = GEO_CPU_VIEWS
+        ref = cpu([None if t is None else t[:, :n].cpu() for t in tokens], hw, psi)
+        errs = {k: rel_err(ref[k], out[k][:n]) for k in ref}
+        w = proj.resize_layers[0].weight
+        w.copy_(w.flip(2, 3))
+        fault = rel_err(ref["res2"], proj(tokens, hw, psi)["res2"][:n])
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    c = proj.resize_layers[3].out_channels
+    good = (all(e <= GEO_TOL for e in errs.values()) and fault > GEO_TOL
+            and shapes == {"res2": (V, 4 * g, 4 * g, c), "res3": (V, 2 * g, 2 * g, c),
+                           "res4": (V, g, g, c), "res5": (V, (g + 1) // 2, (g + 1) // 2, c)}
+            and all(bool(torch.isfinite(v).all()) for v in out.values()))
+    log(f"[modules] {'' if good else 'FAIL '}GeoProjector({cfg.part.dim_in}) on 4 x "
+        f"(1, {V}, {P}, {cfg.part.dim_in}) bf16 tokens, fp32, TF32 off: {shapes}; against the "
+        f"CPU on views 0-{n - 1} max rel err " + ", ".join(f"{k} {e:.3e}" for k, e in
+                                                        errs.items())
+        + f" (limit {GEO_TOL}); planted fault (level-0 ConvTranspose unflipped) res2 "
+        f"{fault:.3e}, must fail; {secs * 1e3:.2f} ms on the card")
+    return good
+
+
+def forward_without_flash(tmp: str, counts_out: dict) -> bool:
+    """The 8x518 scene's forward through `IGGTProcessor` by default and with
+    `RuntimeConfig(use_flash_attention=False)`, in turns after a warm-up of
+    each: launch counts, `sdpa_plain` calls, outputs within the bf16 trunk's
+    limit of the default forward's, wall times."""
+    import torch
+
+    from iggt_official_tpu_torch.app import demo
+    from iggt_official_tpu_torch.config import RuntimeConfig
+
+    scene = write_scene(tmp, MODULES_VIEWS, SEED + 2)   # the 8 views 518x518 request's scene
+    proc = demo.IGGTProcessor(device="cuda", seed=SEED)
+    hw = (MODULES_SIZE, MODULES_SIZE)
+    runtimes = {"default": RuntimeConfig(image_size=hw),
+                "use_flash_attention=False": RuntimeConfig(image_size=hw,
+                                                           use_flash_attention=False)}
+    agg = proc.cfg.aggregator
+    n_plain = 2 * agg.depth + agg.vit.depth       # DINOv2, frame and global blocks
+    want = {"default": {"flash_attention_fused": 2 * agg.depth,
+                        "flash_attention": agg.vit.depth + 1, "qk_prep": 0, "nn1": 0,
+                        "fused_ln": 0},
+            "use_flash_attention=False": NO_FLASH_LAUNCHES}
+    plain_calls = []
+    sdpa_plain = demo.sdpa_plain
+
+    def counted(q, k, v):
+        plain_calls.append(q.shape)
+        return sdpa_plain(q, k, v)
+
+    demo.sdpa_plain = counted
+    try:
+        outs, counts, calls, walls = {}, {}, {}, {k: [] for k in runtimes}
+        for label, runtime in runtimes.items():
+            proc.runtime = runtime
+            zero_counts()
+            del plain_calls[:]
+            outs[label] = proc._run_inference(scene)
+            torch.cuda.synchronize()
+            counts[label], calls[label] = read_counts(), len(plain_calls)
+        for label in list(runtimes) + list(runtimes)[::-1]:
+            proc.runtime = runtimes[label]
+            walls[label].append(wall_s(lambda: proc._run_inference(scene)))
+    finally:
+        demo.sdpa_plain = sdpa_plain
+    ref, out = outs["default"], outs["use_flash_attention=False"]
+    errs = {k: rel_err(ref[k], out[k]) for k in OUTPUTS}
+    good = (counts == want and calls == {"default": 0, "use_flash_attention=False": n_plain}
+            and all(e <= AGREEMENT_TOL["bfloat16"] for e in errs.values())
+            and all(bool(torch.isfinite(out[k]).all()) for k in OUTPUTS))
+    counts_out.update({f"{k} 8x518 forward": v for k, v in counts.items()})
+    log(f"[modules] {'' if good else 'FAIL '}IGGTProcessor {MODULES_VIEWS} views "
+        f"{MODULES_SIZE}x{MODULES_SIZE} forward "
+        f"(_run_inference): launches {counts} (want {want}); sdpa_plain calls {calls}; "
+        f"use_flash_attention=False against the default, max rel err "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (limit {AGREEMENT_TOL['bfloat16']}, the bf16 trunk's); wall s in turns "
+        + json.dumps({k: [round(t, 4) for t in v] for k, v in walls.items()})
+        + f" on {nvidia_smi_line()}")
+    del proc, outs
+    return good
+
+
 def build_all() -> None:
     """nvcc for every kernel source and g++ for the native host library, all
     started together; prints each build's time and the ptxas report."""
@@ -4867,7 +5120,8 @@ def build_all() -> None:
 
 
 def main(phases=("device", "build", "kernels", "agreement", "postproc", "requests",
-                 "batch_eval", "sam2", "sam2_video", "data", "train", "parallel")) -> int:
+                 "batch_eval", "modules", "sam2", "sam2_video", "data", "train",
+                 "parallel")) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -4909,6 +5163,10 @@ def main(phases=("device", "build", "kernels", "agreement", "postproc", "request
 
         with tempfile.TemporaryDirectory() as tmp:
             ok &= run_batch_eval(IGGTProcessor(device="cuda", seed=SEED), tmp, launches)
+    if "modules" in phases:
+        t0 = time.perf_counter()
+        ok &= run_modules(launches)
+        log(f"[modules] phase {time.perf_counter() - t0:.1f} s of wall time")
     if "sam2" in phases:
         hiera = check_hiera_kernels()
         presets = [r for D, cases in hiera_preset_cases().items()

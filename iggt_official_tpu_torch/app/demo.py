@@ -5,7 +5,9 @@ resize the scene's images, one forward of the IGGT model (bf16 trunk through
 the hand-written attention kernels, and with ``RuntimeConfig(fused_ln=True)``
 its pre-norms through the fused LayerNorm kernel; with
 ``RuntimeConfig(global_merge_r=r)`` (``--merge_tokens r``) the global blocks
-attend over K/V with r tokens merged away, `ops/token_merge.py`; decode heads in
+attend over K/V with r tokens merged away, `ops/token_merge.py`; with
+``RuntimeConfig(use_flash_attention=False)`` the DINOv2, frame and global
+blocks attend through plain torch, `layers/blocks.py::sdpa_plain`; decode heads in
 ``ModelConfig.head_dtype``, fp32 by default), then `_post_process`: decode
 the poses, unproject the depth maps, normalize the part features and colour
 them by PCA, smooth them over the world points (Morton-window kNN), and
@@ -65,8 +67,10 @@ from iggt_official_tpu_torch.geometry.projection import (
     depth_to_world_coords_points,
     unproject_depth_map_to_point_map,
 )
+from iggt_official_tpu_torch.layers.blocks import sdpa_plain
 from iggt_official_tpu_torch.models.vggt import IGGT, build_model
 from iggt_official_tpu_torch.ops.cluster import cluster_features_to_masks_mv, trace_stage
+from iggt_official_tpu_torch.ops.flash_attention import attention
 from iggt_official_tpu_torch.ops.knn import knn_smooth_features
 from iggt_official_tpu_torch.ops.pca import normalize_and_pca
 from iggt_official_tpu_torch.ops.token_merge import merge_count, protected_tokens
@@ -211,8 +215,11 @@ class IGGTProcessor:
             P = agg.patch_start_idx + (h // agg.patch_size) * (w // agg.patch_size)
             logger.info("token merging: r = %d of the %d requested (%d views of %d tokens)",
                         merge_count(r, protected_tokens(S, P, agg.patch_start_idx)), r, S, P)
+        attn = {}
+        if not self.runtime.use_flash_attention:
+            attn = {"attn_fn": sdpa_plain, "part_attn_fn": attention}
         out = self.model(torch.from_numpy(images[None]).to(self.device),
-                         fused_ln=self.runtime.fused_ln, global_merge_r=r)
+                         fused_ln=self.runtime.fused_ln, global_merge_r=r, **attn)
         preds: Dict[str, Any] = {k: v for k, v in out.items() if k != "pose_enc_list"}
         preds["images"] = images
         return preds

@@ -251,6 +251,11 @@ class RuntimeConfig:
     # GLB export: drop points below this percentile of confidence
     conf_threshold: float = 0.3
     clustering: ClusteringConfig = dataclasses.field(default_factory=ClusteringConfig)
+    # False: every `Attention` (DINOv2, frame and global blocks) attends
+    # through `layers/blocks.py::sdpa_plain` with its q/k prep outside the
+    # kernel, as the JAX demo then runs `sdpa_xla`; the part head's
+    # cross-attention keeps the kernel dispatcher, as in the JAX package
+    use_flash_attention: bool = True
     # every trunk pre-norm through the hand-written LayerNorm kernel
     # (`ops/fused_ln.py`, two-pass variance) instead of the fast-variance
     # `LayerNorm`; off by default, as in the JAX package

@@ -70,6 +70,17 @@ def extract_overlapping_windows(x: torch.Tensor, ws: int, ows: int) -> torch.Ten
     return wins.reshape(-1, ows * ows, C)
 
 
+def rpi_window_sa(ws: int) -> np.ndarray:
+    """Relative-position index for ws x ws self-attention windows."""
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
+    rel[:, :, 0] += ws - 1
+    rel[:, :, 1] += ws - 1
+    rel[:, :, 0] *= 2 * ws - 1
+    return rel.sum(-1)
+
+
 def rpi_window_oca(ws: int, ows: int) -> np.ndarray:
     """Relative-position index: ws x ws queries vs ows x ows keys."""
     co = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
@@ -102,6 +113,32 @@ def _window_mha(q, k, v, bias=None):
         logits = logits + bias[None]
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+class WindowAttention(nn.Module):
+    """Windowed MHA with a relative-position-bias table over (B_, N, C)
+    windows, ``rpi`` the (N, N) index (`rpi_window_sa`).  No block of the
+    model uses it: `HAB` attends without the bias, as the reference
+    checkpoint's path does (the JAX package keeps this class for parity)."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window_size - 1) ** 2, num_heads))
+        self.proj = Linear(dim, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, rpi) -> torch.Tensor:
+        B_, N, C = x.shape
+        x = x.to(self.dtype)
+        qkv = self.qkv(x).reshape(B_, N, 3, self.num_heads, C // self.num_heads)
+        rpi = torch.as_tensor(rpi, device=x.device).reshape(-1)
+        bias = self.relative_position_bias_table[rpi].reshape(N, N, -1).permute(2, 0, 1)
+        out = _window_mha(*qkv.unbind(2), bias)
+        return self.proj(out.reshape(B_, N, C))
 
 
 class _Pool(nn.Module):

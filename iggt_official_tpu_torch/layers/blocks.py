@@ -149,6 +149,28 @@ class Mlp(nn.Module):
         return self.fc2.row_parallel(h, self.tp)
 
 
+class SwiGLUFFN(nn.Module):
+    """w12 -> silu(x1) * x2 -> w3, the halves of w12's output in that order;
+    hidden width (int(hidden_features * 2 / 3) + 7) // 8 * 8 (2736 at dim
+    1024, mlp_ratio 4).  Tensor parallelism leaves it replicated, as the
+    JAX package shards only ``mlp/fc1``, ``mlp/fc2`` and ``attn/proj``."""
+
+    def __init__(self, in_features: int, hidden_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        hidden = swiglu_hidden(hidden_features)
+        self.w12 = Linear(in_features, 2 * hidden, bias=bias, dtype=dtype)
+        self.w3 = Linear(hidden, in_features, bias=bias, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)
+
+
+def swiglu_hidden(hidden_features: int) -> int:
+    return (int(hidden_features * 2 / 3) + 7) // 8 * 8
+
+
 class LayerScale(nn.Module):
     """Learnable per-channel residual scale."""
 
@@ -285,22 +307,29 @@ class CrossAttention(nn.Module):
         return self.proj((attn_fn or self.attn_fn)(q, k, v).reshape(B, Nq, C))
 
 
+FFN_LAYERS = {"mlp": Mlp, "swiglu": SwiGLUFFN}
+
+
 class Block(nn.Module):
-    """Pre-norm transformer block with LayerScale residuals (inference path)."""
+    """Pre-norm transformer block with LayerScale residuals (inference path);
+    ``ffn_layer`` "mlp" (`Mlp`) or "swiglu" (`SwiGLUFFN`), both under ``mlp``."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, proj_bias: bool = True,
                  ffn_bias: bool = True, init_values: Optional[float] = None,
                  qk_norm: bool = False, dtype: torch.dtype = torch.float32,
-                 ln_eps: float = 1e-5, attn_fn: Callable = sdpa_plain):
+                 ln_eps: float = 1e-5, attn_fn: Callable = sdpa_plain,
+                 ffn_layer: str = "mlp"):
         super().__init__()
+        if ffn_layer not in FFN_LAYERS:
+            raise ValueError(f"unknown ffn_layer {ffn_layer}")
         self.dtype = dtype
         self.norm1 = LayerNorm(dim, eps=ln_eps)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, proj_bias=proj_bias,
                               qk_norm=qk_norm, dtype=dtype, attn_fn=attn_fn)
         self.ls1 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.norm2 = LayerNorm(dim, eps=ln_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), bias=ffn_bias, dtype=dtype)
+        self.mlp = FFN_LAYERS[ffn_layer](dim, int(dim * mlp_ratio), bias=ffn_bias, dtype=dtype)
         self.ls2 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
 
     def _pre_norm(self, norm: LayerNorm, x: torch.Tensor, fused_ln: bool) -> torch.Tensor:

@@ -93,6 +93,8 @@ def load() -> ctypes.CDLL:
         pi64, pi64, f64, i64, f64, f64, i64,
         ctypes.c_double, ctypes.c_double, ctypes.c_int32, pi64]
     lib.hdbscan_mst_labels.restype = None
+    lib.mst_from_edges.argtypes = [pi64, pi64, f64, i64, i64, pi64, pi64, f64]
+    lib.mst_from_edges.restype = i64
     lib.mst_knn.argtypes = [f64, pi64, f64, i64, i64, pi64, pi64, f64]
     lib.mst_knn.restype = i64
     lib.knn_query.argtypes = [f32, i64, i64, i64, f32, pi64]
@@ -165,6 +167,25 @@ def hdbscan_mst_labels(edge_a, edge_b, edge_d, weights, core, eps: float,
         ctypes.c_double(eps), ctypes.c_double(min_cluster_size),
         ctypes.c_int32(1 if allow_single_cluster else 0), _ptr(labels, i64))
     return labels
+
+
+def mst_from_edges(src, dst, w, n_vertices: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Minimum spanning forest (Boruvka) of an undirected sparse graph of
+    ``n_vertices`` -> (a, b, d) edge arrays (at most n_vertices - 1 edges),
+    endpoints as given."""
+    lib = load()
+    src = np.ascontiguousarray(src, np.int64)
+    dst = np.ascontiguousarray(dst, np.int64)
+    w = np.ascontiguousarray(w, np.float64)
+    cap = max(int(n_vertices) - 1, 1)
+    out_a = np.empty(cap, np.int64)
+    out_b = np.empty(cap, np.int64)
+    out_d = np.empty(cap, np.float64)
+    i64, f64 = ctypes.c_int64, ctypes.c_double
+    n = lib.mst_from_edges(_ptr(src, i64), _ptr(dst, i64), _ptr(w, f64), int(src.shape[0]),
+                           int(n_vertices), _ptr(out_a, i64), _ptr(out_b, i64),
+                           _ptr(out_d, f64))
+    return out_a[:n], out_b[:n], out_d[:n]
 
 
 def mst_knn(knn_dist, knn_idx, core) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

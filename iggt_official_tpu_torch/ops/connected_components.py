@@ -65,6 +65,16 @@ def connected_components(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     return out.reshape(B, H, W), areas.reshape(B, H, W)
 
 
+def get_connected_components(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference-shaped API (`sam2/utils/misc.py:41-57`): (N, 1, H, W) in,
+    (labels, counts) of the same shape out; (N, H, W) passes unsqueezed."""
+    squeezed = mask.ndim == 4
+    labels, areas = connected_components((mask[:, 0] if squeezed else mask).bool())
+    if squeezed:
+        return labels[:, None], areas[:, None]
+    return labels, areas
+
+
 def fill_small_components(scores: torch.Tensor, select: torch.Tensor, max_area: float,
                           value: float) -> torch.Tensor:
     """``scores`` (B, H, W) with every pixel of a component of ``select``

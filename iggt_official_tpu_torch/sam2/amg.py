@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from iggt_official_tpu_torch.data.rle import area
 from iggt_official_tpu_torch.ops.connected_components import (
     connected_components_host, mask_to_box,
 )
@@ -89,6 +90,11 @@ def rle_to_mask(rle: Dict[str, Any]) -> np.ndarray:
         idx += count
         parity = not parity
     return mask.reshape(w, h).transpose()
+
+
+def area_from_rle(rle: Dict[str, Any]) -> int:
+    """The foreground pixels of an RLE (`data/rle.py::area`)."""
+    return area(rle)
 
 
 def build_all_layer_point_grids(

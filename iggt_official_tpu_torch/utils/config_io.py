@@ -12,8 +12,9 @@ Behavioural parity (first-party — no mmengine/fvcore deps):
 
 Counterpart of `iggt_official_tpu/utils/config_io.py`, copied, with the YAML
 read by the port's own subset reader (`utils/yaml_subset.py`, equal to
-``yaml.safe_load`` on its subset, raising outside it; a ``.json`` file is
-read by `json`): PyYAML is not a dependency of the port.
+``yaml.safe_load`` on its subset, raising outside it; a ``.json`` file's
+numbers resolved by YAML 1.1's rules, as ``yaml.safe_load`` reads JSON):
+PyYAML is not a dependency of the port.
 """
 
 from __future__ import annotations

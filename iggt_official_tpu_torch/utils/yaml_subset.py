@@ -1,9 +1,10 @@
 """A reader of the YAML subset that the config loaders use, without PyYAML.
 
-`utils/config_io.py` and `utils/arguments.py` read their YAML files here
-(the JAX package reads them with ``yaml.safe_load``; PyYAML is not a
-dependency of the port).  On every text inside the subset the result equals
-``yaml.safe_load``'s, YAML 1.1 scalar rules included.  The subset:
+`utils/config_io.py` and `utils/arguments.py` read their YAML and JSON
+files here (the JAX package reads both with ``yaml.safe_load``; PyYAML is
+not a dependency of the port).  On every text inside the subset the result
+equals ``yaml.safe_load``'s, YAML 1.1 scalar rules included; so does
+`load_json`'s on a JSON text.  The subset:
 
 - block mappings and block sequences, nested by indentation (a sequence may
   sit at its key's own indentation; ``- key: value`` opens a mapping item);
@@ -449,10 +450,53 @@ def load(text: str) -> Any:
     return value
 
 
+# characters PyYAML's reader refuses anywhere in a stream, and the raw line
+# breaks of YAML 1.1, which a double-quoted scalar folds or trims around
+# (JSON keeps them as they are)
+_JSON_REFUSED = re.compile("[^\x09\x0A\x0D\x20-\x7E\xA0-\u2027\u202A-\uD7FF"
+                           "\uE000-\uFFFD\U00010000-\U0010FFFF]")
+_JSON_STRING = re.compile(r'"(?:[^"\\]|\\.)*"')
+_JSON_ESCAPE = re.compile(r"\\(u[0-9a-fA-F]{4}|.)")
+
+
+def load_json(text: str) -> Any:
+    """``yaml.safe_load(text)`` for a JSON text.
+
+    `json` parses it, and YAML 1.1's resolvers read every number token: a
+    float needs a dot and, with an exponent, a signed one (``1.5e-3``), so
+    ``1e-5``, ``1E+5`` and ``1.0e5`` stay strings, as do ``NaN`` and
+    ``Infinity``.  What PyYAML reads otherwise raises `YAMLSubsetError`: a
+    tab outside a string (PyYAML refuses it), a surrogate-pair escape
+    (`json` joins the halves, PyYAML keeps them apart), a character PyYAML
+    does not print, or a raw line break.  A text that is not JSON
+    goes to `load`."""
+    text = text[1:] if text.startswith("\ufeff") else text
+    if not text.strip():
+        return None
+    bad = _JSON_REFUSED.search(text)
+    if bad:
+        raise YAMLSubsetError(f"character {bad.group()!r} at offset {bad.start()}: "
+                              "PyYAML refuses it or reads it as a line break")
+    if "\t" in _JSON_STRING.sub('""', text):
+        raise YAMLSubsetError("a tab outside a string: PyYAML refuses it")
+    for string in _JSON_STRING.findall(text):
+        for esc in _JSON_ESCAPE.findall(string):
+            if esc[0] == "u" and 0xD800 <= int(esc[1:], 16) <= 0xDFFF:
+                raise YAMLSubsetError(f"the surrogate escape \\{esc} is outside the subset")
+    try:
+        return json.loads(text, parse_float=_resolve_number, parse_int=_resolve_number,
+                          parse_constant=_resolve_number)
+    except json.JSONDecodeError:
+        return load(text)
+
+
+def _resolve_number(token: str) -> Any:
+    return _resolve_plain(token, 0)
+
+
 def load_file(path: str) -> Any:
-    """A config file's contents: JSON (``.json``) as `json` reads it, else
-    `load` of the text."""
+    """A config file's contents as ``yaml.safe_load`` reads them: `load_json`
+    of a ``.json`` file's text, else `load`."""
     with open(path, encoding="utf-8") as f:
-        if path.lower().endswith(".json"):
-            return json.load(f)
-        return load(f.read())
+        text = f.read()
+    return load_json(text) if path.lower().endswith(".json") else load(text)

@@ -115,8 +115,62 @@ def test_config_loader(tmp_path):
             "lr", "[1e-3, 2]", "name", "plain words"]
     assert targs.load_opt_command(argv) == jargs.load_opt_command(argv)
     (tmp_path / "c.json").write_text('{"model.depth": 3, "lr": 1e-5, "flag": true}')
-    assert targs.load_opt_from_config_files([str(tmp_path / "c.json")]) == \
-        {"model": {"depth": 3}, "lr": 1e-5, "flag": True}
+    json_files = [str(tmp_path / "c.json")]
+    assert same(targs.load_opt_from_config_files(json_files),
+                jargs.load_opt_from_config_files(json_files))
+
+
+BS = chr(92)   # a backslash, for the JSON texts' escapes
+JSON_TEXTS = [
+    '{"lr": 1e-5, "a": 1E+5, "b": 1.0e5, "c": 1.5e-3, "d": -0, "e": 1.5E+3, "f": 10E-1,'
+    ' "g": 2.5E-3, "h": 1.0e+400, "i": 0.1, "j": -1.5, "k": 0}',
+    '{"big": 123456789012345678901234567890, "neg": -98765432109876543210, "consts":'
+    ' [NaN, Infinity, -Infinity]}',
+    '{"s": "' + BS + 'u00e9' + BS + 'u4e2d' + BS + '/' + BS + 'n' + BS + 't' + BS + '"",'
+    ' "raw": "é中 😀", "empty": ""}',
+    '{\n  "model": {"depth": 24, "heads": [16, {"d": [true, false, null]}]},\n'
+    '  "solver": {"lr": 2e-4, "steps": [30000, 40000]}\n}\n',
+    '{"a": 1, "a": 2, "b": {"x": 1e-5, "x": 3}, "b.c": 4}',
+    '{"model.depth":3,"lr":1e-5,"list":[1,2,{"c":-0.5}]}',
+]
+
+
+@pytest.mark.parametrize("i", range(len(JSON_TEXTS)))
+def test_json_configs_read_as_yaml_safe_load(tmp_path, i):
+    """A ``.json`` config reads as the JAX package reads it, through
+    ``yaml.safe_load``: YAML 1.1 resolves ``1e-5`` (no dot), ``1E+5`` and
+    ``1.0e5`` (unsigned exponent), ``NaN`` and ``Infinity`` as strings; big
+    ints, escapes, nesting, and the last of duplicate keys as `json` does."""
+    path = tmp_path / "c.json"
+    path.write_text(JSON_TEXTS[i], encoding="utf-8")
+    want = yaml.safe_load(JSON_TEXTS[i])
+    assert same(want, yaml_subset.load_file(str(path))), want
+    assert same(targs.load_opt_from_config_files([str(path)]),
+                jargs.load_opt_from_config_files([str(path)]))
+    with open(path, "rb") as f:
+        assert same(tcfg.CfgNode.load_yaml_with_base(str(path)).to_dict(),
+                    jcfg.CfgNode.load_yaml_with_base(str(path)).to_dict())
+
+
+def test_json_reader_planted_fault_and_refusals(tmp_path, monkeypatch):
+    """A plain ``json.load`` in place of the YAML reading gives ``lr`` 1e-05
+    where the JAX package reads '1e-5', and the loaders' comparison fails;
+    JSON that PyYAML reads otherwise (a surrogate-pair escape, a tab between
+    tokens) raises `YAMLSubsetError`."""
+    import json
+
+    path = tmp_path / "c.json"
+    path.write_text(JSON_TEXTS[0])
+    want = jargs.load_opt_from_config_files([str(path)])
+    assert want["lr"] == "1e-5"
+    monkeypatch.setattr(yaml_subset, "load_json", json.loads)
+    assert not same(targs.load_opt_from_config_files([str(path)]), want)
+    monkeypatch.undo()
+    for text, what in (('{"a": "' + BS + 'ud83d' + BS + 'ude00"}', "surrogate"),
+                       ('{\n\t"a": 1}', "tab")):
+        path.write_text(text)
+        with pytest.raises(yaml_subset.YAMLSubsetError, match=what):
+            yaml_subset.load_file(str(path))
 
 
 def test_py_config_fromfile_with_base(tmp_path):
