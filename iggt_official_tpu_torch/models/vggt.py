@@ -34,6 +34,12 @@ plans over every view and is refused there.
 The dense heads decode views in chunks of at most ``frames_chunk_size``
 (the largest divisor of S within the bound), a Python loop here, so their
 full-resolution fp32 activations are bounded by the chunk, not by S.
+
+Under a profiler each forward is one ``model.forward`` span (`utils/logging.py::span`)
+holding one span per layer: ``model.trunk``, then one per head that runs
+(``model.camera_head``, ``model.depth_head``, ``model.point_head``,
+``model.track_head``, ``model.part_head``); every operation the forward
+launches sits in one of them, so a trace gives each layer's device time.
 """
 
 from __future__ import annotations
@@ -53,8 +59,17 @@ from iggt_official_tpu_torch.models.aggregator import Aggregator
 from iggt_official_tpu_torch.parallel.comm import AxisGroup, gather
 from iggt_official_tpu_torch.utils.device import resolve_device, torch_dtype
 from iggt_official_tpu_torch.utils.init import init_params
+from iggt_official_tpu_torch.utils.logging import span
 
 Preds = Dict[str, Union[torch.Tensor, list, tuple]]
+
+FORWARD_SPAN = "model.forward"
+TRUNK_SPAN = "model.trunk"
+CAMERA_SPAN = "model.camera_head"
+DEPTH_SPAN = "model.depth_head"
+POINT_SPAN = "model.point_head"
+TRACK_SPAN = "model.track_head"
+PART_SPAN = "model.part_head"
 
 
 def _view_chunks(S: int, chunk_size: int) -> List[slice]:
@@ -87,12 +102,15 @@ class VGGT(nn.Module):
         if cfg.enable_track:
             self.track_head = TrackHead(cfg.track)
 
-    def _dense(self, head: DPTHead, tokens_list, hw: Tuple[int, int], psi: int):
-        """A DPT head over view chunks: (preds, conf) concatenated over views,
-        and the chunks' fusion pyramids when the head emits one."""
-        outs = [head(_chunk(tokens_list, v), hw, psi)
-                for v in _view_chunks(tokens_list[0].shape[1], head.cfg.frames_chunk_size)]
-        dense = (torch.cat([o[0] for o in outs], dim=1), torch.cat([o[1] for o in outs], dim=1))
+    def _dense(self, name: str, head: DPTHead, tokens_list, hw: Tuple[int, int], psi: int):
+        """A DPT head over view chunks, in span ``name``: (preds, conf)
+        concatenated over views, and the chunks' fusion pyramids when the head
+        emits one."""
+        with span(name):
+            outs = [head(_chunk(tokens_list, v), hw, psi)
+                    for v in _view_chunks(tokens_list[0].shape[1], head.cfg.frames_chunk_size)]
+            dense = (torch.cat([o[0] for o in outs], dim=1),
+                     torch.cat([o[1] for o in outs], dim=1))
         return dense, [o[2] for o in outs if len(o) == 3]
 
     def _trunk(self, images, fused_ln, global_merge_r, attn_fn, remat, global_attn_fn,
@@ -102,8 +120,9 @@ class VGGT(nn.Module):
             raise ValueError("token merging plans over every view; it does not run on a "
                              "sequence-sharded forward")
         offset = seq.rank * images.shape[1] if sharded else 0
-        return self.aggregator(images, fused_ln, global_merge_r, attn_fn, remat,
-                               global_attn_fn, offset)
+        with span(TRUNK_SPAN):
+            return self.aggregator(images, fused_ln, global_merge_r, attn_fn, remat,
+                                   global_attn_fn, offset)
 
     def _heads(self, preds: Preds, tokens_list, hw, psi: int,
                query_points: Optional[torch.Tensor], seq: Optional[AxisGroup] = None) -> list:
@@ -112,21 +131,23 @@ class VGGT(nn.Module):
         cfg = self.cfg
         sharded = seq is not None and seq.size > 1
         if cfg.enable_camera:
-            cam = gather(tokens_list[-1][:, :, :1], seq, 1) if sharded else tokens_list[-1]
-            pose_list = self.camera_head(cam)
+            with span(CAMERA_SPAN):
+                cam = gather(tokens_list[-1][:, :, :1], seq, 1) if sharded else tokens_list[-1]
+                pose_list = self.camera_head(cam)
             preds["pose_enc"] = pose_list[-1]
             preds["pose_enc_list"] = pose_list
         if cfg.enable_depth:
             (preds["depth"], preds["depth_conf"]), _ = self._dense(
-                self.depth_head, tokens_list, hw, psi)
+                DEPTH_SPAN, self.depth_head, tokens_list, hw, psi)
         pyramids = []
         if cfg.enable_point:
             (preds["world_points"], preds["world_points_conf"]), pyramids = self._dense(
-                self.point_head, tokens_list, hw, psi)
+                POINT_SPAN, self.point_head, tokens_list, hw, psi)
         if cfg.enable_track and query_points is not None:
-            if sharded:
-                tokens_list = [gather(t, seq, 1) for t in tokens_list]
-            coord_preds, vis, conf = self.track_head(tokens_list, hw, psi, query_points)
+            with span(TRACK_SPAN):
+                if sharded:
+                    tokens_list = [gather(t, seq, 1) for t in tokens_list]
+                coord_preds, vis, conf = self.track_head(tokens_list, hw, psi, query_points)
             preds["track"] = coord_preds[-1]
             preds["vis"] = vis
             if conf is not None:
@@ -142,16 +163,19 @@ class VGGT(nn.Module):
         aggregated token map (``cam_token``), the raw (preds, conf) pairs of
         the depth and point heads and the images; no camera, no tracking."""
         B, S, H, W, _ = images.shape
-        tokens_list, psi = self._trunk(images, fused_ln, global_merge_r, attn_fn, remat,
-                                       global_attn_fn, seq)
-        if feat_only:
-            return {"cam_token": tokens_list[-1],
-                    "depth": self._dense(self.depth_head, tokens_list, (H, W), psi)[0],
-                    "point": self._dense(self.point_head, tokens_list, (H, W), psi)[0],
-                    "images": images}
-        preds: Preds = {}
-        self._heads(preds, tokens_list, (H, W), psi, query_points, seq)
-        return preds
+        with span(FORWARD_SPAN):
+            tokens_list, psi = self._trunk(images, fused_ln, global_merge_r, attn_fn, remat,
+                                           global_attn_fn, seq)
+            if feat_only:
+                return {"cam_token": tokens_list[-1],
+                        "depth": self._dense(DEPTH_SPAN, self.depth_head, tokens_list,
+                                             (H, W), psi)[0],
+                        "point": self._dense(POINT_SPAN, self.point_head, tokens_list,
+                                             (H, W), psi)[0],
+                        "images": images}
+            preds: Preds = {}
+            self._heads(preds, tokens_list, (H, W), psi, query_points, seq)
+            return preds
 
 
 class IGGT(VGGT):
@@ -178,26 +202,28 @@ class IGGT(VGGT):
         """images: (B, S, H, W, 3) in [0, 1]; query_points (B, N, 2) pixels."""
         cfg = self.cfg
         B, S, H, W, _ = images.shape
-        tokens_list, psi = self._trunk(images, fused_ln, global_merge_r, attn_fn, remat,
-                                       global_attn_fn, seq)
-        preds: Preds = {}
-        pyramids = self._heads(preds, tokens_list, (H, W), psi, query_points, seq)
-        if not cfg.enable_part:
+        with span(FORWARD_SPAN):
+            tokens_list, psi = self._trunk(images, fused_ln, global_merge_r, attn_fn, remat,
+                                           global_attn_fn, seq)
+            preds: Preds = {}
+            pyramids = self._heads(preds, tokens_list, (H, W), psi, query_points, seq)
+            if not cfg.enable_part:
+                return preds
+            with span(PART_SPAN):
+                # the fusion pyramid, (B*cs, h, w, c) per chunk -> (B, S, h, w, c) per level
+                levels = [torch.cat([pyr[i].reshape(B, -1, *pyr[i].shape[1:])
+                                     for pyr in pyramids], dim=1) for i in range(3)]
+                del pyramids
+                feats = []
+                for v in _view_chunks(S, cfg.part.frames_chunk_size):
+                    toks = _chunk(tokens_list, v)
+                    cs = toks[0].shape[1]
+                    proj = self.part_adaptor(toks, (H, W), psi)
+                    pyr = [t[:, v].reshape(B * cs, *t.shape[2:]) for t in levels]
+                    feats.append(self.part_head(proj, pyr, (H, W), (B, cs),
+                                                attn_fn=part_attn_fn or attn_fn))
+                preds["part_feat"] = torch.cat(feats, dim=1)
             return preds
-        # the fusion pyramid, (B*cs, h, w, c) per chunk -> (B, S, h, w, c) per level
-        levels = [torch.cat([pyr[i].reshape(B, -1, *pyr[i].shape[1:]) for pyr in pyramids],
-                            dim=1) for i in range(3)]
-        del pyramids
-        feats = []
-        for v in _view_chunks(S, cfg.part.frames_chunk_size):
-            toks = _chunk(tokens_list, v)
-            cs = toks[0].shape[1]
-            proj = self.part_adaptor(toks, (H, W), psi)
-            pyr = [t[:, v].reshape(B * cs, *t.shape[2:]) for t in levels]
-            feats.append(self.part_head(proj, pyr, (H, W), (B, cs),
-                                        attn_fn=part_attn_fn or attn_fn))
-        preds["part_feat"] = torch.cat(feats, dim=1)
-        return preds
 
 
 def build_model(cfg: Optional[ModelConfig] = None,

@@ -58,10 +58,16 @@ from iggt_official_tpu_torch.parallel.attention import make_mesh_attention_fns
 from iggt_official_tpu_torch.parallel.comm import AxisGroup
 from iggt_official_tpu_torch.parallel.mesh import ParallelPlan, local_tensor
 from iggt_official_tpu_torch.train.losses import GlobalSums, total_loss
+from iggt_official_tpu_torch.utils.logging import span
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.95, 1e-8
 # numel of the parameters updated together: bounds the update's temporaries
 _CHUNK_NUMEL = 1 << 26
+# a step's spans under a profiler (`utils/logging.py::span`), in their order
+FORWARD_SPAN = "train.forward"
+LOSS_SPAN = "train.loss"
+BACKWARD_SPAN = "train.backward"
+OPTIMIZER_SPAN = "train.optimizer"
 
 
 def make_schedule(base_lr: float = 1e-4, warmup_steps: int = 1000,
@@ -308,7 +314,10 @@ def make_train_step(model: nn.Module, optimizer: AdamWLayerDecay,
     instance_ids (B, S, H, W), as tensors on the model's device; on a
     ``mesh``, the rank's batch entries and views of them (the model laid out
     by ``parallelize(model, mesh, fsdp)``, the optimizer made after it), and
-    the loss and metrics are the whole batch's, the same on every rank."""
+    the loss and metrics are the whole batch's, the same on every rank.
+    Under a profiler the step's phases are the spans ``train.forward``,
+    ``train.loss``, ``train.backward`` (the gradients' averaging over a mesh
+    included) and ``train.optimizer``."""
 
     routes = {"attn_fn": attn_fn}
     if isinstance(model, IGGT):
@@ -328,19 +337,24 @@ def make_train_step(model: nn.Module, optimizer: AdamWLayerDecay,
     def step(batch: Dict[str, torch.Tensor]):
         optimizer.zero_grad()
         with torch.enable_grad():
-            preds = model(batch["images"], remat=remat, **routes)
-            loss, metrics = total_loss(preds, batch, loss_weights, sums)
+            with span(FORWARD_SPAN):
+                preds = model(batch["images"], remat=remat, **routes)
+            with span(LOSS_SPAN):
+                loss, metrics = total_loss(preds, batch, loss_weights, sums)
             del preds
-            loss.backward()
+            with span(BACKWARD_SPAN):
+                loss.backward()
+                if sums is not None:
+                    average_gradients(model, plan)
         metrics = {k: v.detach() for k, v in metrics.items()}
         if sums is not None:
-            average_gradients(model, plan)
             keys = sorted(metrics)
             mean = torch.stack([metrics[k] for k in keys])
             _all_reduce_mean([mean], mesh.dp)
             metrics = dict(zip(keys, mean.unbind(0)))
             loss = metrics["loss/total"]
-        metrics["grad_norm"] = optimizer.step()
+        with span(OPTIMIZER_SPAN):
+            metrics["grad_norm"] = optimizer.step()
         return loss.detach(), metrics
 
     return step

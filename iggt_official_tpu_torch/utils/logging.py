@@ -2,11 +2,13 @@
 
 Counterpart of `iggt_official_tpu/utils/logging.py`: `SmoothedValue` and
 `MetricLogger` (windowed medians and averages, the `log_every` iterator),
-`AverageMeter`, `StageTimer` (per-stage wall timers that synchronize the
-card before they read the clock, so queued kernels are counted) and
-`profile_trace` on `torch.profiler` (a Chrome trace per call).  No metric
-is reduced across processes here: on a mesh the train step hands the logger
-metrics already averaged over the ranks (`train/step.py`).
+`AverageMeter`, `profile_trace` on `torch.profiler` (a Chrome trace per
+call) and `span`, the port's one way to name a stretch of its own work in
+such a trace: a `torch.profiler.record_function` range, opened only while a
+profiler records, on the profiler's clock beside the device operations it
+launches; it stands where the JAX package has `StageTimer`'s wall timers.
+No metric is reduced across processes here: on a mesh the train step hands
+the logger metrics already averaged over the ranks (`train/step.py`).
 """
 
 from __future__ import annotations
@@ -18,6 +20,12 @@ from collections import defaultdict, deque
 from typing import Dict, Iterable, Optional
 
 import numpy as np
+import torch
+from torch.autograd.profiler import record_function
+
+# True while a profiler records
+_recording = torch._C._autograd._profiler_enabled
+_NOTHING = contextlib.nullcontext()
 
 
 class SmoothedValue:
@@ -124,6 +132,15 @@ class MetricLogger:
         )
 
 
+def span(name: str):
+    """A context manager naming what runs inside it ``name`` in a profiler's
+    trace (a ``record_function`` range, the device operations launched
+    inside it carrying it in their launch stacks); with no profiler
+    recording, a shared no-op, so a span costs one check (an idle
+    ``record_function`` costs a hundred times more)."""
+    return record_function(name) if _recording() else _NOTHING
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str] = None):
     """Trace the host and, when there is one, the card with `torch.profiler`;
@@ -131,7 +148,6 @@ def profile_trace(log_dir: Optional[str] = None):
     (a training step's trace holds ~10^5 events: writing it costs seconds)."""
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -145,59 +161,6 @@ def profile_trace(log_dir: Optional[str] = None):
         os.makedirs(log_dir, exist_ok=True)
         prof.export_chrome_trace(
             os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-class StageTimer:
-    """Per-stage wall timers that respect asynchronous launches.
-
-    Usage:
-        timer = StageTimer()
-        with timer.stage("forward") as holder:
-            out = step(...)
-            holder["sync_on"] = out
-
-    With ``sync_on`` set, the card is synchronized (its tensors' devices)
-    before the clock is read."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        holder = {}
-        try:
-            yield holder
-        finally:
-            if "sync_on" in holder:
-                _synchronize(holder["sync_on"])
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> Dict[str, float]:
-        return {
-            name: self.totals[name] / max(self.counts[name], 1)
-            for name in self.totals
-        }
-
-
-def _synchronize(tree) -> None:
-    """Wait for the card(s) that hold any tensor in ``tree``."""
-    import torch
-
-    stack, devices = [tree], set()
-    while stack:
-        x = stack.pop()
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                devices.add(x.device)
-        elif isinstance(x, dict):
-            stack.extend(x.values())
-        elif isinstance(x, (list, tuple)):
-            stack.extend(x)
-    for d in devices:
-        torch.cuda.synchronize(d)
 
 
 class AverageMeter:

@@ -39,6 +39,8 @@ TABLE = {
     ("ops/nn1_pallas.py", "nn1_pallas"): "ops/nn1.py::nn1",
     ("ops/nn1_pallas.py", "bucket_topk_pallas"): "ops/nn1.py::bucket_topk",
     ("train/step.py", "layer_decay_scales"): "train/step.py::layer_decay_scale",
+    ("utils/logging.py", "StageTimer"): "utils/logging.py::span",   # profiler spans on
+    # the device ops' clock in place of synchronizing wall timers
     ("train/step.py", "TrainState"):
         JAX_ONLY + "flax pytree of step, params and optax state; the port's model and "
                    "train/step.py::AdamWLayerDecay hold theirs",

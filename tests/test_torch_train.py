@@ -539,9 +539,11 @@ def _vggt_config():
     return dataclasses.replace(cfg, enable_part=False, name="vggt")
 
 
-def test_train_loop_smoke_and_resume(tmp_path):
-    """JAX `test_train_loop_smoke` through the port: 3 steps with a checkpoint
-    at 2 and at the end, then a resume to 4 that continues the count."""
+@pytest.fixture(scope="module")
+def loop_run(tmp_path_factory):
+    """3 steps of `train` with a checkpoint at 2 and at the end, the second
+    step under the profiler (``profile_step``); the run's state, logs,
+    checkpoint directory and batch stream."""
     rng = np.random.default_rng(0)
 
     def batches():
@@ -553,9 +555,18 @@ def test_train_loop_smoke_and_resume(tmp_path):
                    "valid_mask": np.ones((1, 2, 28, 28), np.float32)}
 
     logs = []
-    ckpt = str(tmp_path / "ckpt")
-    state = train(_vggt_config(), batches(), num_steps=3, device="cpu", checkpoint_dir=ckpt,
-                  checkpoint_every=2, warmup_steps=1, log_every=1, print_fn=logs.append)
+    ckpt = str(tmp_path_factory.mktemp("loop") / "ckpt")
+    stream = batches()
+    state = train(_vggt_config(), stream, num_steps=3, device="cpu", checkpoint_dir=ckpt,
+                  checkpoint_every=2, warmup_steps=1, log_every=1, print_fn=logs.append,
+                  profile_step=1)
+    return state, logs, ckpt, stream
+
+
+def test_train_loop_smoke_and_resume(loop_run):
+    """JAX `test_train_loop_smoke` through the port: 3 steps with a checkpoint
+    at 2 and at the end, then a resume to 4 that continues the count."""
+    state, logs, ckpt, batches = loop_run
     assert state.step == 3
     assert any("loss/total" in line for line in logs)
     assert sorted(os.listdir(ckpt)) == ["step_00000002.pt", "step_00000003.pt"]
@@ -571,7 +582,7 @@ def test_train_loop_smoke_and_resume(tmp_path):
         assert torch.equal(saved["optimizer"]["mu"][k], opt_state["mu"][k])
         assert torch.equal(saved["optimizer"]["nu"][k], opt_state["nu"][k])
 
-    state2 = train(copy.deepcopy(state.model), batches(), num_steps=4, checkpoint_dir=ckpt,
+    state2 = train(copy.deepcopy(state.model), batches, num_steps=4, checkpoint_dir=ckpt,
                    checkpoint_every=10, warmup_steps=1, log_every=10, print_fn=logs.append)
     assert state2.step == 4
     assert any("resumed" in line and "step 3" in line for line in logs)
@@ -579,6 +590,15 @@ def test_train_loop_smoke_and_resume(tmp_path):
     assert state2.history[0]["lr"] == tstep.make_schedule(1e-4, 1, 4)(3)
     assert state2.optimizer.count == 4
     assert "step_00000004.pt" in os.listdir(ckpt)
+
+
+def test_profiled_step_lists_each_step_span_once(loop_run):
+    """``profile_step``'s `key_averages` hold the step's four spans
+    (`train/step.py`) and the model's forward span, once each."""
+    counts = {e.key: e.count for e in loop_run[0].profile}
+    for name in (tstep.FORWARD_SPAN, tstep.LOSS_SPAN, tstep.BACKWARD_SPAN,
+                 tstep.OPTIMIZER_SPAN, "model.forward"):
+        assert counts.get(name) == 1, (name, counts.get(name))
 
 
 def test_train_cli_smoke_and_processor_load(tmp_path):
