@@ -46,6 +46,19 @@ order; any failure exits non-zero:
    calls) timed with CUDA events; for nn1 and bucket_topk, whose full query
    sets do not fit one `torch.cdist`, the calls over every query in
    16,384-query chunks, summed (the 16,384-query call's time beside it).
+3b. conv3x3: the heads' 3x3 convolution kernel (`csrc/conv3x3.cu`, three
+   TF32 passes) at every (input channels, output channels, map) the heads
+   route to it in the benchmark's two cells, and at ragged edges, against a
+   float64 convolution: its error at most twice cuDNN fp32's (TF32 off) on
+   the same inputs, every tile shape too, two calls byte-equal, and the
+   planted fault (one TF32 pass) above the limit; the six largest shapes at
+   the cells' 8 views checked the same way, the outputs' mean shrink toward
+   zero within `CONV3X3_SHRINK` (one tensor-core chain per A slot, a planted
+   fault, beyond it), and timed (kernel, plain, cuDNN fp32 as `library_ms`,
+   cuDNN TF32 for scale) against max(ops / 165 TF/s, bytes / 3.35 TB/s);
+   then one forward of each cell's full-width model: launches per forward
+   (77 and 320), outputs within `CONV3X3_FORWARD_GAP` of the same forward on
+   cuDNN fp32, and both forwards timed in turns.
 4. agreement: a scaled IGGT on the card through the kernels and on the CPU
    through the plain versions, same weights and images: fp32 trunk, bf16
    trunk, bf16 trunk with `fused_ln=True`, bf16 trunk with bf16 heads (its
@@ -480,7 +493,8 @@ MAIN_CASE = {"flash_attention": "frame/DINOv2 block, 8 views 518px",
              "bucket_topk": "core kNN candidate, Q = R = 150000",
              "flash_attention_hiera": "blocks 23, 33, 43, global",
              "flash_attention_hiera_d56": "global",
-             "flash_attention_hiera_d96": "global"}
+             "flash_attention_hiera_d96": "global",
+             "conv3x3": "timed (8, 148, 148, 256) -> 256"}
 REPLACES = {
     "flash_attention": "iggt_official_tpu/ops/flash_attention.py:117",
     "flash_attention_fused": "iggt_official_tpu/ops/flash_attention.py:335",
@@ -491,6 +505,7 @@ REPLACES = {
     "flash_attention_hiera": "iggt_official_tpu/ops/flash_attention.py:117",
     "flash_attention_hiera_d56": "iggt_official_tpu/ops/flash_attention.py:117",
     "flash_attention_hiera_d96": "iggt_official_tpu/ops/flash_attention.py:117",
+    "conv3x3": "none: the JAX package leaves convolutions to XLA (iggt_official_tpu/ops/conv.py)",
 }
 KEY_TILE = 64
 MERGE_R = 4096           # the merged 8x518 request's --merge_tokens (4,795 candidates)
@@ -845,7 +860,8 @@ SOURCE = {"flash_attention": "iggt_official_tpu_torch/csrc/flash_attention.cu",
           "bucket_topk": "iggt_official_tpu_torch/csrc/nn1.cu",
           "flash_attention_hiera": "iggt_official_tpu_torch/csrc/flash_attention.cu",
           "flash_attention_hiera_d56": "iggt_official_tpu_torch/csrc/flash_attention.cu",
-          "flash_attention_hiera_d96": "iggt_official_tpu_torch/csrc/flash_attention.cu"}
+          "flash_attention_hiera_d96": "iggt_official_tpu_torch/csrc/flash_attention.cu",
+          "conv3x3": "iggt_official_tpu_torch/csrc/conv3x3.cu"}
 
 
 def nn1_bound_ms(Q: int, R: int, D: int = 8):
@@ -1250,6 +1266,233 @@ def check_fused_ln():
     return results
 
 
+# conv3x3 (csrc/conv3x3.cu): every (input channels, output channels, map) the
+# heads route to it in the two benchmark cells, at one or two views; then the
+# six largest at the cells' 8 views, checked and timed.
+CONV3X3_SHAPES = (
+    # 8 views 518 px (patch grid 37): DPT and part-head fusion, SamProjector,
+    # the window attentions' convolutions
+    (256, 256, 148, 148), (256, 256, 74, 74), (256, 256, 37, 37), (256, 256, 19, 19),
+    (512, 256, 74, 74), (1024, 256, 37, 37), (1024, 256, 19, 19), (256, 128, 296, 296),
+    (128, 32, 518, 518), (256, 64, 148, 148), (64, 256, 148, 148), (128, 42, 296, 296),
+    (128, 128, 296, 296), (128, 64, 296, 296), (64, 128, 296, 296),
+    # 64 views 504x336 (patch grid 24 x 36): the DPT heads, 8 views a chunk
+    (256, 256, 96, 144), (256, 256, 48, 72), (256, 256, 24, 36), (256, 256, 12, 18),
+    (512, 256, 48, 72), (1024, 256, 24, 36), (1024, 256, 12, 18), (256, 128, 192, 288),
+    (128, 32, 336, 504),
+)
+CONV3X3_EDGES = (  # (N, H, W, Cin, Cout, bias): ragged tiles, odd widths, 32 channels
+    (3, 13, 21, 64, 42, True), (2, 7, 5, 32, 5, False), (1, 1, 1, 32, 8, True),
+    (5, 9, 33, 96, 130, True), (2, 130, 3, 32, 256, False), (4, 17, 1, 64, 64, True),
+)
+CONV3X3_TIMED = ((8, 148, 148, 256, 256), (8, 296, 296, 256, 128), (8, 518, 518, 128, 32),
+                 (8, 96, 144, 256, 256), (8, 192, 288, 256, 128), (8, 336, 504, 128, 32))
+CONV3X3_PEAK = 495e12 / 3   # three TF32 passes at the TF32 peak
+# the outputs' mean shrink toward zero (`conv3x3_shrink`): the tensor cores'
+# truncated fp32 sums shrink a chain with every add; on an H100 at the timed
+# shapes the kernel's one-tap chains read -8.7e-8, one chain per A slot
+# -5.7e-7, cuDNN fp32 1e-9 or less (tests/test_torch_conv3x3.py's SHRINK_LIMIT)
+CONV3X3_SHRINK = 2e-7
+# the full forwards' outputs, kernel against cuDNN fp32 (largest gap over the
+# largest value): the fp32 level the benchmark holds the heads to
+# (`heads_max_rel` at most 3e-5, a hundredth of one TF32 pass's 2.7e-3)
+CONV3X3_FORWARD_GAP = 3e-5
+CONV3X3_FORWARD_LAUNCHES = {"iggt": 77, "vggt": 320}
+CONV3X3_TILES = ((1, 128), (2, 64), (1, 64), (2, 32), (1, 32))  # (m64 tiles per warpgroup, BN)
+
+
+def conv3x3_bound_ms(N, H, W, Cin, Cout):
+    ops = 2.0 * N * H * W * Cout * 9 * Cin
+    nbytes = 4.0 * (N * H * W * (Cin + Cout) + 9 * Cin * Cout)
+    t_ops, t_bytes = ops / CONV3X3_PEAK, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("ops" if t_ops >= t_bytes else "bytes"), ops
+
+
+def conv3x3_err(out, ref64) -> float:
+    """Largest gap over the largest reference magnitude."""
+    return ((out.double() - ref64).abs().max() / ref64.abs().max().clamp(min=1e-300)).item()
+
+
+def conv3x3_shrink(out, ref64, bias=None) -> float:
+    """The outputs' mean signed gap toward zero over their mean magnitude,
+    the convolution's part of the reference (without ``bias``, which the
+    epilogue adds rounded to nearest) giving sign and size:
+    mean((out - ref) sign(conv)) / mean |conv|, negative where sums shrink."""
+    conv = ref64 if bias is None else ref64 - bias.double()
+    return ((out.double() - ref64).mul(conv.sign()).mean() / conv.abs().mean()).item()
+
+
+def check_conv3x3(shapes=CONV3X3_SHAPES, edges=CONV3X3_EDGES, timed=CONV3X3_TIMED):
+    """The kernel against a float64 convolution of the same inputs, beside
+    cuDNN's fp32 (TF32 off) error on them: the kernel's may be at most twice
+    cuDNN's, and the planted fault (one TF32 pass) must exceed that limit.
+    Two calls give equal bytes.  Then the timed shapes, at the cells' 8
+    views: the same check, the mean shrink within `CONV3X3_SHRINK` where one
+    chain per A slot (a planted fault) exceeds it; and kernel, plain
+    (`conv3x3_plain`: cuDNN fp32 on the NHWC view), `F.conv2d` on an NCHW
+    tensor (`library_ms`) and cuDNN with TF32 on (one pass, a lower precision,
+    for scale), against the bound: max(ops / 165 TF/s, bytes / 3.35 TB/s)."""
+    import torch
+    import torch.nn.functional as F
+
+    from iggt_official_tpu_torch.ops import conv as cv
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = [(2 if H * W <= 148 * 148 else 1, H, W, Cin, Cout, True)
+             for Cin, Cout, H, W in shapes] + list(edges)
+    results = []
+    for N, H, W, Cin, Cout, has_bias in cases:
+        x = torch.randn((N, H, W, Cin), generator=gen, device="cuda")
+        w = torch.randn((Cout, Cin, 3, 3), generator=gen, device="cuda") / (3 * Cin ** 0.5)
+        b = torch.randn((Cout,), generator=gen, device="cuda") if has_bias else None
+        with torch.inference_mode():
+            out = cv.conv3x3(x, w, b)
+            again = cv.conv3x3(x, w, b)
+            torch.cuda.synchronize()
+            ref = F.conv2d(x.double().permute(0, 3, 1, 2), w.double(),
+                           None if b is None else b.double(), 1, 1).permute(0, 2, 3, 1)
+            cudnn = cv.conv3x3_plain(x, w, b)
+            one_pass = cv._launch(x, w, b, fault=1)
+            tiles = {t: cv._launch(x, w, b, tile=t) for t in CONV3X3_TILES
+                     if t[1] // 2 < Cout and t != cv.conv3x3_tile(x, Cout)}
+        err, cudnn_err = conv3x3_err(out, ref), conv3x3_err(cudnn, ref)
+        limit = 2 * cudnn_err
+        fault_err = conv3x3_err(one_pass, ref)
+        equal = torch.equal(out, again)
+        tile_errs = {f"{128 * t[0]}x{t[1]}": conv3x3_err(o, ref) for t, o in tiles.items()}
+        ok = (bool(torch.isfinite(out).all()) and err <= limit and fault_err > limit and equal
+              and all(e <= limit for e in tile_errs.values()))
+        mt, bn = cv.conv3x3_tile(x, Cout)
+        label = f"({N}, {H}, {W}, {Cin}) -> {Cout}"
+        log(f"[kernels] conv3x3 {label:28s} tile {128 * mt}x{bn}: err {err:.3g} "
+            f"(cuDNN fp32 {cudnn_err:.3g}, limit {limit:.3g}; one TF32 pass {fault_err:.3g}) "
+            f"two calls {'byte-equal' if equal else 'DIFFER'}; other tiles "
+            + ", ".join(f"{k} {e:.3g}" for k, e in tile_errs.items()) + f" {'ok' if ok else 'FAIL'}")
+        results.append(dict(kernel="conv3x3", label=label, shape=[N, H, W, Cin, Cout],
+                            bias=has_bias, tile=[128 * mt, bn], max_abs_err=err,
+                            cudnn_err=cudnn_err, limit=limit, fault_errs={"one TF32 pass": fault_err},
+                            byte_equal=equal, ok=ok))
+        del x, w, b, out, again, ref, cudnn, one_pass, tiles
+    torch.cuda.empty_cache()
+    for N, H, W, Cin, Cout in timed:
+        x = torch.randn((N, H, W, Cin), generator=gen, device="cuda")
+        w = torch.randn((Cout, Cin, 3, 3), generator=gen, device="cuda") / (3 * Cin ** 0.5)
+        b = torch.randn((Cout,), generator=gen, device="cuda")
+        label = f"({N}, {H}, {W}, {Cin}) -> {Cout}"
+        with torch.inference_mode():
+            out = cv.conv3x3(x, w, b)
+            ref = F.conv2d(x.double().permute(0, 3, 1, 2), w.double(), b.double(),
+                           1, 1).permute(0, 2, 3, 1)
+            cudnn_err = conv3x3_err(cv.conv3x3_plain(x, w, b), ref)
+            fault_err = conv3x3_err(cv._launch(x, w, b, fault=1), ref)
+            slot_shrink = conv3x3_shrink(cv._launch(x, w, b, fault=2), ref, b)
+        err, shrink, limit = conv3x3_err(out, ref), conv3x3_shrink(out, ref, b), 2 * cudnn_err
+        ok = (bool(torch.isfinite(out).all()) and err <= limit and fault_err > limit
+              and abs(shrink) <= CONV3X3_SHRINK and slot_shrink < -CONV3X3_SHRINK)
+        log(f"[kernels] conv3x3 {label:28s} err {err:.3g} (cuDNN fp32 {cudnn_err:.3g}, limit "
+            f"{limit:.3g}; one TF32 pass {fault_err:.3g}) shrink {shrink:.3g} (limit "
+            f"{CONV3X3_SHRINK:.3g}; one chain per A slot {slot_shrink:.3g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        del out, ref
+        torch.cuda.empty_cache()
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        with torch.inference_mode():
+            ms = time_ms(lambda: cv.conv3x3(x, w, b), iters=20, warmup=3)
+            plain_ms = time_ms(lambda: cv.conv3x3_plain(x, w, b), iters=10, warmup=2)
+            library_ms = time_ms(lambda: F.conv2d(xn, w, b, 1, 1), iters=10, warmup=2)
+            torch.backends.cudnn.allow_tf32 = True
+            tf32_ms = time_ms(lambda: F.conv2d(xn, w, b, 1, 1), iters=10, warmup=2)
+            torch.backends.cudnn.allow_tf32 = False
+            tile_ms = {f"{128 * t[0]}x{t[1]}": time_ms(lambda t=t: cv._launch(x, w, b, tile=t),
+                                                       iters=10, warmup=2)
+                       for t in CONV3X3_TILES if t[1] // 2 < Cout}
+        bound_ms, bound_by, ops = conv3x3_bound_ms(N, H, W, Cin, Cout)
+        mt, bn = cv.conv3x3_tile(x, Cout)
+        log(f"[kernels] conv3x3 {label:28s} tile {128 * mt}x{bn}: ms={ms:.4f} "
+            f"({ops / ms / 1e9:.1f} TF/s) bound_ms={bound_ms:.4f} ({bound_by}, "
+            f"{100 * bound_ms / ms:.1f}%) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"(cuDNN fp32) cuDNN TF32 (one pass) {tf32_ms:.4f} ({nvidia_smi_line()}); by tile "
+            + ", ".join(f"{k} {v:.4f}" for k, v in tile_ms.items()))
+        results.append(dict(kernel="conv3x3", label=f"timed {label}", shape=[N, H, W, Cin, Cout],
+                            tile=[128 * mt, bn], max_abs_err=err, cudnn_err=cudnn_err,
+                            limit=limit, fault_errs={"one TF32 pass": fault_err},
+                            shrink=shrink, slot_shrink=slot_shrink, ms=ms, bound_ms=bound_ms,
+                            bound_by=bound_by, share=bound_ms / ms, plain_ms=plain_ms,
+                            library_ms=library_ms, tf32_ms=tf32_ms, tile_ms=tile_ms, ok=ok))
+        del x, w, b, xn
+    torch.cuda.empty_cache()
+    return results
+
+
+CONV3X3_FORWARDS = (("iggt", 8, 518, 518), ("vggt", 64, 336, 504))
+
+
+def run_conv3x3_forwards(forwards=CONV3X3_FORWARDS, timed: int = 3) -> dict:
+    """The full-width model of each benchmark cell (the port's own seeded
+    init) on one request of its shape: `conv3x3` launches per forward, the
+    outputs with the heads' 3x3 convolutions on the kernel against the same
+    forward with them on cuDNN fp32 (largest gap over the largest magnitude,
+    at most `CONV3X3_FORWARD_GAP`), and the forward's time each way, in turns
+    (CUDA events).  ``ok`` holds where every gap is within its limit and the
+    launches are `CONV3X3_FORWARD_LAUNCHES`."""
+    import torch
+
+    from iggt_official_tpu_torch.config import ModelConfig
+    from iggt_official_tpu_torch.models.vggt import IGGT, VGGT
+    from iggt_official_tpu_torch.ops import conv as cv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    routes = cv.conv3x3_routes
+    report = {}
+    for name, S, H, W in forwards:
+        torch.manual_seed(SEED)
+        with torch.device("cuda"):
+            model = (IGGT(ModelConfig()) if name == "iggt" else
+                     VGGT(ModelConfig(name="vggt", enable_part=False, enable_track=True)))
+        model = model.eval().requires_grad_(False)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        x = torch.rand((1, S, H, W, 3), generator=gen, device="cuda")
+
+        def forward(routed: bool):
+            cv.conv3x3_routes = routes if routed else (lambda *args: False)
+            try:
+                with torch.inference_mode():
+                    return model(x)
+            finally:
+                cv.conv3x3_routes = routes
+
+        forward(True)
+        forward(False)
+        cv.conv3x3.launches = 0
+        kernel_out = forward(True)
+        launches = cv.conv3x3.launches
+        cudnn_out = forward(False)
+        gaps = {k: ((kernel_out[k].double() - cudnn_out[k].double()).abs().max()
+                    / cudnn_out[k].double().abs().max()).item()
+                for k in ("depth", "world_points", "part_feat") if k in kernel_out}
+        del kernel_out, cudnn_out
+        ms = {"kernel": [], "cudnn": []}
+        for _ in range(timed):
+            for routed, key in ((False, "cudnn"), (True, "kernel"), (True, "kernel"),
+                                (False, "cudnn")):
+                ms[key].append(time_ms(lambda: forward(routed), iters=1, warmup=0))
+        med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+        ok = (launches == CONV3X3_FORWARD_LAUNCHES[name]
+              and all(v <= CONV3X3_FORWARD_GAP for v in gaps.values()))
+        log(f"[conv3x3] {name} {S} views {H}x{W}: {launches} conv3x3 launches per forward "
+            f"(want {CONV3X3_FORWARD_LAUNCHES[name]}); kernel vs cuDNN fp32 outputs (largest "
+            f"gap / largest value, limit {CONV3X3_FORWARD_GAP:.3g}) "
+            + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+            + f"; forward ms (median of {2 * timed}) kernel {med['kernel']:.1f}, cuDNN "
+            f"{med['cudnn']:.1f} ({nvidia_smi_line()}) {'ok' if ok else 'FAIL'}")
+        report[name] = {"launches": launches, "gaps": gaps, "ms": med, "ok": ok}
+        del model, x
+        torch.cuda.empty_cache()
+    return report
+
+
 BT_Q = 150_000           # the clustering subsample: Q = R, self-kNN as its core kNN
 BT_K = 64
 BT_NB = 1024
@@ -1463,6 +1706,9 @@ CASE_KEYS["flash_attention_hiera"] = CASE_KEYS["flash_attention"] + (
     "graph_ms", "library_graph_ms", "calls_per_set_image", "library_backend")
 CASE_KEYS["flash_attention_hiera_d56"] = CASE_KEYS["flash_attention_hiera"]
 CASE_KEYS["flash_attention_hiera_d96"] = CASE_KEYS["flash_attention_hiera"]
+CASE_KEYS["conv3x3"] = ("label", "shape", "tile", "max_abs_err", "cudnn_err", "limit",
+                        "fault_errs", "byte_equal", "shrink", "slot_shrink", "ms", "bound_ms",
+                        "bound_by", "share", "plain_ms", "library_ms", "tf32_ms", "tile_ms")
 CASE_KEYS["qk_prep"] = ("label", "shape", "dtype", "max_abs_err", "err", "err_unit", "limit",
                         "fault_errs", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 LAUNCHES_FROM = {
@@ -1482,6 +1728,8 @@ LAUNCHES_FROM = {
                                  "1024 px (fp32, head dim 56)",
     "flash_attention_hiera_d96": "one SAM2ImagePredictor.set_image each of sam2_hiera_t and "
                                  "sam2_hiera_s at 1024 px (fp32, head dim 96)",
+    "conv3x3": "one forward of the iggt.fwd.8x518 cell's model (IGGT, 8 views 518x518); "
+               "launches_vggt: of the vggt.fwd.64x504 cell's (64 views 504x336)",
 }
 
 
@@ -1489,7 +1737,7 @@ def kernels_summary(results, launches, extra):
     out = []
     for kernel in ("flash_attention", "flash_attention_fused", "qk_prep", "nn1", "fused_ln",
                    "bucket_topk", "flash_attention_hiera", "flash_attention_hiera_d56",
-                   "flash_attention_hiera_d96"):
+                   "flash_attention_hiera_d96", "conv3x3"):
         cases = [r for r in results if r["kernel"] == kernel]
         if not cases:
             continue
@@ -1500,7 +1748,7 @@ def kernels_summary(results, launches, extra):
             "source": SOURCE[kernel],
             "replaces": REPLACES[kernel],
             "launches": launches.get(kernel, 0),
-            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "max_abs_err": max(r["max_abs_err"] for r in cases if "max_abs_err" in r),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"],
@@ -1514,7 +1762,7 @@ def kernels_summary(results, launches, extra):
                                     "device_ms", "library_device_ms", "turns_ms",
                                     "library_turns_ms")
                if k in main},
-            "cases": [{k: r[k] for k in CASE_KEYS[kernel]} for r in cases],
+            "cases": [{k: r[k] for k in CASE_KEYS[kernel] if k in r} for r in cases],
         })
         if kernel.startswith("flash_attention_hiera"):
             out[-1]["wrapper"] = "flash_attention"
@@ -1539,6 +1787,9 @@ def kernels_summary(results, launches, extra):
             out[-1]["launches_modules_from"] = (
                 "the modules phase: one call of each full-width SwiGLU block, and one 8 x 518 "
                 "forward through IGGTProcessor with RuntimeConfig(use_flash_attention=False)")
+        if kernel == "conv3x3" and "conv3x3_vggt" in launches:
+            out[-1]["launches_vggt"] = launches["conv3x3_vggt"]
+            out[-1]["max_abs_err_is"] = "largest gap over the largest float64 value"
         if kernel in ("nn1", "bucket_topk"):
             out[-1]["max_abs_err_is"] = "index mismatches against the plain version"
         if kernel in LAUNCHES_FROM:
@@ -5119,7 +5370,7 @@ def build_all() -> None:
                 log(f"[build] {src}: {line.strip()}")
 
 
-def main(phases=("device", "build", "kernels", "agreement", "postproc", "requests",
+def main(phases=("device", "build", "kernels", "conv3x3", "agreement", "postproc", "requests",
                  "batch_eval", "modules", "sam2", "sam2_video", "data", "train",
                  "parallel")) -> int:
     import torch
@@ -5150,10 +5401,18 @@ def main(phases=("device", "build", "kernels", "agreement", "postproc", "request
         results = (check_kernels() + check_qk_prep() + check_nn1() + check_fused_ln()
                    + check_bucket_topk())
         ok &= all(r["ok"] for r in results)
+    launches, extra = {}, {}
+    if "conv3x3" in phases:
+        conv = check_conv3x3()
+        results += conv
+        ok &= all(r["ok"] for r in conv)
+        forwards = run_conv3x3_forwards()
+        ok &= all(f["ok"] for f in forwards.values())
+        launches["conv3x3"] = forwards["iggt"]["launches"]
+        launches["conv3x3_vggt"] = forwards["vggt"]["launches"]
     if "agreement" in phases:
         ok &= check_agreement()
         ok &= check_postproc_agreement()
-    launches, extra = {}, {}
     if "postproc" in phases:
         ok &= run_postproc(launches)
     if "requests" in phases:

@@ -35,7 +35,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("flash_attention", "nn1", "fused_ln")
+SOURCES = ("flash_attention", "nn1", "fused_ln", "conv3x3")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 
